@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Mapping
+from typing import Mapping
 
 import numpy as np
 import torch
@@ -63,12 +63,20 @@ def params_from_numpy(flat_or_tree, device="cpu"):
         tree)
 
 
+def load_params(path: str, device="cpu"):
+    """A flat `a/b/0/c` npz (the JAX package's `save_params`, e.g. a
+    converted CLAP checkpoint) -> its tree of tensors on `device`."""
+    with np.load(path) as data:
+        return params_from_numpy({k: data[k] for k in data.files}, device)
+
+
 def cast_matmul_weights(tree, dtype: torch.dtype, _name: str = ""):
     """Store the linear, conv and embedding weights in `dtype`. Each of them
     is cast to the compute dtype where it is used (ops.nn.linear,
     ops.conv.conv1d, the residual-unit kernel), so casting once at load gives
     the same numbers without a cast per call. Norm weights and the T5
-    relative-position table stay fp32: they are read in fp32."""
+    relative-position table stay fp32: they are read in fp32. Quantized
+    leaves (w8, w4 and their scales) are not "weight" and stay as stored."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
@@ -87,11 +95,14 @@ def cast_matmul_weights(tree, dtype: torch.dtype, _name: str = ""):
 def load_sam_audio(path: str, device="cuda", allow_random_towers: bool = False,
                    tokenizer=None, **config_overrides):
     """Load the `config.json` + `params.npz` snapshot that the JAX package's
-    `SAMAudio.save_pretrained` writes. Returns a models.sam_audio.SAMAudio
-    on `device`. Without a text tower in the snapshot, a random one is made
-    only when `allow_random_towers=True` (tests)."""
-    from sam_audio_tpu_torch.models.sam_audio import SAMAudio, resolve_device
+    `SAMAudio.save_pretrained` writes, quantized (w8 / w4) trees included.
+    Returns a models.sam_audio.SAMAudio on `device`, with the text ranker of
+    `cfg.text_ranker`. Without a text tower in the snapshot, a random one is
+    made only when `allow_random_towers=True` (tests), which also lets a
+    weightless CLAP ranker take random weights."""
     from sam_audio_tpu_torch.models.init import t5_encoder_init
+    from sam_audio_tpu_torch.models.sam_audio import SAMAudio, resolve_device
+    from sam_audio_tpu_torch.ranking import create_ranker
 
     device = resolve_device(device)
     with open(os.path.join(path, "config.json")) as fin:
@@ -103,9 +114,7 @@ def load_sam_audio(path: str, device="cuda", allow_random_towers: bool = False,
         raise FileNotFoundError(
             f"No params.npz in {path}; convert a reference checkpoint.pt with "
             "the JAX package's converter (scripts/convert_checkpoint.py) first")
-    with np.load(npz) as data:
-        flat: Dict[str, np.ndarray] = {k: data[k] for k in data.files}
-    params = params_from_numpy(flat, device)
+    params = load_params(npz, device)
     if "text_encoder" not in params:
         if not allow_random_towers:
             raise FileNotFoundError(
@@ -115,7 +124,10 @@ def load_sam_audio(path: str, device="cuda", allow_random_towers: bool = False,
         gen = torch.Generator(device=device).manual_seed(0)
         params["text_encoder"] = t5_encoder_init(cfg.text_encoder, gen, device)
     model = SAMAudio(cfg, params, device=device, tokenizer=tokenizer,
-                     allow_random_towers=allow_random_towers)
+                     allow_random_towers=allow_random_towers,
+                     text_ranker=create_ranker(cfg.text_ranker,
+                                               allow_random=allow_random_towers,
+                                               device=device))
     if not allow_random_towers and tokenizer is None:
         model.tokenizer  # fail at load, not mid-separate, without a tokenizer
     return model

@@ -184,6 +184,71 @@ def dacvae_init(cfg: DACVAEConfig, ini: _Init):
     }
 
 
+def htsat_init(cfg, ini: _Init):
+    """models/htsat.py's tree: stages and their blocks are lists."""
+    from sam_audio_tpu_torch.ops.mel import mel_filterbank
+
+    def block(c, nh):
+        return {"norm1": ini.affine(c), "qkv": ini.linear(c, 3 * c),
+                "proj": ini.linear(c, c),
+                "relative_position_bias_table": ini.normal(
+                    ((2 * cfg.window_size - 1) ** 2, nh), 0.02),
+                "norm2": ini.affine(c), "fc1": ini.linear(c, int(c * cfg.mlp_ratio)),
+                "fc2": ini.linear(int(c * cfg.mlp_ratio), c)}
+
+    fb = mel_filterbank(cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin, cfg.fmax,
+                        mel_scale="slaney", norm="slaney")
+    p = {"melW": torch.as_tensor(fb, device=ini.device),
+         "bn0": {"weight": ini.const((cfg.n_mels,), 1.0), "bias": ini.const((cfg.n_mels,), 0.0),
+                 "mean": ini.const((cfg.n_mels,), 0.0), "var": ini.const((cfg.n_mels,), 1.0)},
+         "patch_embed": {"proj": {"weight": ini.normal((cfg.embed_dim, 1, cfg.patch_size,
+                                                        cfg.patch_size), 0.02),
+                                  "bias": ini.const((cfg.embed_dim,), 0.0)},
+                         "norm": ini.affine(cfg.embed_dim)},
+         "stages": [],
+         "norm": ini.affine(cfg.out_dim)}
+    for li, depth in enumerate(cfg.depths):
+        c = cfg.embed_dim * 2 ** li
+        stage = {"blocks": [block(c, cfg.num_heads[li]) for _ in range(depth)]}
+        if li < len(cfg.depths) - 1:
+            stage["downsample"] = {"norm": ini.affine(4 * c),
+                                   "reduction": ini.linear(4 * c, 2 * c, bias=False)}
+        p["stages"].append(stage)
+    return p
+
+
+def roberta_init(cfg, ini: _Init):
+    """models/roberta.py's tree, layers stacked on axis 0."""
+    h, m = cfg.hidden_size, cfg.intermediate_size
+
+    def layer():
+        return {"attn": {n: ini.linear(h, h) for n in ("wq", "wk", "wv", "wo")},
+                "attn_ln": ini.affine(h), "fc1": ini.linear(h, m),
+                "fc2": ini.linear(m, h), "ffn_ln": ini.affine(h)}
+
+    return {"word_embeddings": {"weight": ini.normal((cfg.vocab_size, h))},
+            "position_embeddings": {"weight": ini.normal((cfg.max_position_embeddings, h))},
+            "token_type_embeddings": {"weight": ini.normal((cfg.type_vocab_size, h))},
+            "emb_ln": ini.affine(h),
+            "layers": _stack([layer() for _ in range(cfg.num_layers)]),
+            "pooler": ini.linear(h, h)}
+
+
+def clap_init(cfg, generator: torch.Generator, device):
+    """The CLAP scorer's tree (models/clap.py), random, fp32."""
+    ini = _Init(generator, device)
+
+    def mlp(i, o):
+        return {"fc1": ini.linear(i, o), "fc2": ini.linear(o, o)}
+
+    return {"audio_branch": htsat_init(cfg.htsat, ini),
+            "text_branch": roberta_init(cfg.roberta, ini),
+            "audio_projection": mlp(cfg.htsat.out_dim, cfg.embed_dim),
+            "text_projection": mlp(cfg.text_hidden, cfg.embed_dim),
+            "logit_scale_a": ini.const((), math.log(1 / 0.07)),
+            "logit_scale_t": ini.const((), math.log(1 / 0.07))}
+
+
 def sam_audio_init(cfg: SAMAudioConfig, generator: torch.Generator, device):
     """The full SAMAudio parameter tree (fp32), random."""
     ini = _Init(generator, device)

@@ -7,7 +7,10 @@ Counterpart of sam_audio_tpu/models/sam_audio.py for the text-prompted path
     -> velocity), reference model.py:130-180.
   * `SAMAudio.separate` — codec-encode, T5-encode, condition, integrate the
     ODE (midpoint, 16 steps = 32 DiT evaluations), codec-decode target and
-    residual. Reference model.py:247-338.
+    residual. Reference model.py:247-338. With k candidates and a text
+    ranker (CLAP), the k targets are decoded and ranked and only the
+    winner's residual is decoded; `preview_nfe` ranks cheap previews first.
+  * `SAMAudio.quantize` — the int8 / int4 serving modes (ops/quant.py).
 
 Entry points run on the card unless the caller passes device="cpu"; with no
 GPU and no explicit CPU request they raise.
@@ -142,11 +145,24 @@ def decode_channel(params, latents, *, cfg: SAMAudioConfig, channel: int = 0):
     return wavs.float()[:, 0, :]
 
 
+def decode_channel_chunked(params, latents, *, cfg: SAMAudioConfig, channel: int = 0,
+                           max_streams: int = 16):
+    """decode_channel in groups of at most `max_streams` rows: the codec's
+    activations at 48 kHz are ~180 MB per 10 s stream, so a large batch*k
+    decodes in pieces. (The JAX package pads the last group to reuse one
+    compiled program; eager PyTorch has no program to reuse.)"""
+    if latents.shape[0] <= max_streams:
+        return decode_channel(params, latents, cfg=cfg, channel=channel)
+    return torch.cat([decode_channel(params, latents[i: i + max_streams], cfg=cfg,
+                                     channel=channel)
+                      for i in range(0, latents.shape[0], max_streams)])
+
+
 def gather_candidates(latents, idxs, *, candidates: int):
     """latents (B*k, ...), idxs (B,) -> the chosen candidates (B, ...)."""
     b = latents.shape[0] // candidates
-    flat = torch.arange(b, device=latents.device) * candidates + idxs.to(latents.device)
-    return latents[flat]
+    idxs = torch.as_tensor(np.asarray(idxs), dtype=torch.long, device=latents.device)
+    return latents[torch.arange(b, device=latents.device) * candidates + idxs]
 
 
 class SAMAudio:
@@ -158,7 +174,7 @@ class SAMAudio:
     """
 
     def __init__(self, cfg: SAMAudioConfig, params, device="cuda", tokenizer=None,
-                 allow_random_towers: bool = False):
+                 allow_random_towers: bool = False, text_ranker=None):
         from sam_audio_tpu_torch.checkpoint import cast_matmul_weights
 
         self.cfg = cfg
@@ -169,6 +185,9 @@ class SAMAudio:
         self.params = params
         self._tokenizer = tokenizer
         self.allow_random_towers = allow_random_towers
+        # scores the k candidates of separate(reranking_candidates=k); a
+        # ranking.Ranker, e.g. ranking.clap.ClapRanker
+        self.text_ranker = text_ranker
 
     @classmethod
     def init_random(cls, cfg: SAMAudioConfig, seed: int = 0, device="cuda",
@@ -228,6 +247,24 @@ class SAMAudio:
         """Trim padded rows to their true lengths (reference model.py:340-344)."""
         return [np.asarray(row)[..., : int(size)] for row, size in zip(wavs, sizes)]
 
+    def quantize(self, bits: int = 8):
+        """Opt-in quantized serving modes (not exact; ops/quant.py), made from
+        the weights as stored:
+
+        bits=8 — W8A8: the DiT's hot linears and the input projection run
+        int8 x int8 -> int32 (per-channel weight scales, per-token activation
+        scales). The JAX package also quantizes an attached PE vision tower
+        here; the port has no vision tower yet (the visual slice).
+        bits=4 — packed int4 weight storage with group-128 scales; the
+        products run through kernel 4 (ops/int4_matmul.py). On the H100 it
+        saves weight memory, not time.
+
+        Returns self."""
+        from sam_audio_tpu_torch.ops.quant import quantize_sam_audio_params
+
+        self.params = quantize_sam_audio_params(self.params, bits)
+        return self
+
     @torch.inference_mode()
     def separate(self, batch, noise=None, ode_opt: Optional[Dict[str, Any]] = None,
                  reranking_candidates: int = 1,
@@ -237,24 +274,26 @@ class SAMAudio:
                  max_direct_seconds: Optional[float] = None) -> SeparationResult:
         """Separate `batch` (a processor.Batch). `noise` (B or B*k, T, 2C)
         is injected as in reference model.py:247-338; without it the noise
-        is drawn from `generator` on the model's device."""
+        is drawn from `generator` on the model's device.
+
+        With k = reranking_candidates > 1 and a `text_ranker`, the k targets
+        are decoded and scored, and only the winner's residual is decoded.
+        `preview_nfe` (opt-in, not reference semantics): the candidates are
+        solved and ranked at that cheap budget (8 => 4 midpoint steps), then
+        only the winning noise is solved at the full budget."""
+        if preview_nfe is not None and (int(preview_nfe) < 2 or int(preview_nfe) % 2):
+            raise ValueError(
+                "preview_nfe must be an even integer >= 2 (midpoint previews "
+                f"take 2 evals per step: preview_nfe=8 => 4 steps); got {preview_nfe}")
         if predict_spans:
             raise NotImplementedError(
                 "predict_spans is not ported yet (the spans slice)")
-        if preview_nfe is not None:
-            raise NotImplementedError(
-                "preview_nfe is not ported yet (it comes with the k>1 + CLAP "
-                "rerank slice)")
         if visual_stride != 1 or batch.masked_video is not None:
             raise NotImplementedError(
                 "visual prompting is not ported yet (the visual slice)")
         cfg = self.cfg
         ode_opt = ode_opt or DFLT_ODE_OPT
         k = int(reranking_candidates)
-        if k > 1 and (cfg.text_ranker is not None or cfg.visual_ranker is not None):
-            raise NotImplementedError(
-                "reranking with a ranker is not ported yet (the k>1 + CLAP "
-                "rerank slice)")
 
         t_frames = int(batch.anchor_alignment.shape[-1])
         if max_direct_seconds is None:
@@ -295,20 +334,82 @@ class SAMAudio:
         def as_long(x):
             return torch.as_tensor(np.asarray(x), dtype=torch.long, device=dev)
 
-        latents = separate_latents(
-            self.params, audios, text_ids, text_mask, as_long(batch.anchor_ids),
-            as_long(batch.anchor_alignment),
-            torch.as_tensor(np.asarray(batch.audio_pad_mask), dtype=torch.bool,
-                            device=dev),
-            noise, cfg=cfg, candidates=k, ode_method=method,
-            ode_step_size=float(step))
-        # no ranker: candidate 0 of every item (as the JAX package does)
-        chosen = gather_candidates(latents, torch.zeros(b, dtype=torch.long),
-                                   candidates=k)
-        tgt = decode_channel(self.params, chosen, cfg=cfg, channel=0).cpu().numpy()
-        res = decode_channel(self.params, chosen, cfg=cfg, channel=1).cpu().numpy()
-        return SeparationResult(
-            target=[tgt[i, :sizes[i]] for i in range(b)],
-            residual=[res[i, :sizes[i]] for i in range(b)],
-            noise=noise,
-        )
+        core_args = (self.params, audios, text_ids, text_mask, as_long(batch.anchor_ids),
+                     as_long(batch.anchor_alignment),
+                     torch.as_tensor(np.asarray(batch.audio_pad_mask), dtype=torch.bool,
+                                     device=dev))
+
+        def trimmed(wavs):
+            wavs = wavs.cpu().numpy()
+            return [wavs[i, :sizes[i]] for i in range(b)]
+
+        rerank = k > 1 and self.text_ranker is not None
+        if rerank and preview_nfe is not None:
+            # rank on cheap previews, then the full solve of the winners only
+            preview = separate_latents(*core_args, noise, cfg=cfg, candidates=k,
+                                       ode_method=method, ode_step_size=2.0 / preview_nfe)
+            idxs = self._choose(batch, decode_channel_chunked(
+                self.params, preview, cfg=cfg, channel=0), sizes, k)[0]
+            chosen = separate_latents(
+                *core_args, gather_candidates(noise, idxs, candidates=k), cfg=cfg,
+                candidates=1, ode_method=method, ode_step_size=float(step))
+            target = trimmed(decode_channel(self.params, chosen, cfg=cfg, channel=0))
+        else:
+            latents = separate_latents(*core_args, noise, cfg=cfg, candidates=k,
+                                       ode_method=method, ode_step_size=float(step))
+            if rerank:
+                # all k targets are decoded for the ranker; the residual only
+                # for the winner (the JAX package's lazy decode)
+                idxs, target = self._choose(batch, decode_channel_chunked(
+                    self.params, latents, cfg=cfg, channel=0), sizes, k)
+                chosen = gather_candidates(latents, idxs, candidates=k)
+            else:  # candidate 0 of every item
+                chosen = gather_candidates(latents, [0] * b, candidates=k)
+                target = trimmed(decode_channel(self.params, chosen, cfg=cfg, channel=0))
+        residual = trimmed(decode_channel(self.params, chosen, cfg=cfg, channel=1))
+        return SeparationResult(target=target, residual=residual, noise=noise)
+
+    # -- reranking (reference model.py:306-330) ------------------------------
+
+    def _choose(self, batch, tgt_dev, sizes, k: int):
+        """tgt_dev: the (B*k, Tw) decoded targets on the device. Returns the
+        winners' indices and their trimmed target waveforms."""
+        b = len(sizes)
+        idxs = self._rerank_on_device(batch, tgt_dev, sizes, k)
+        if idxs is not None:
+            # only the b winners leave the device
+            sel = gather_candidates(tgt_dev, idxs, candidates=k).cpu().numpy()
+            return idxs, [sel[i, :sizes[i]] for i in range(b)]
+        tgt_all = tgt_dev.cpu().numpy()
+        cands = [tgt_all[i * k:(i + 1) * k, :sizes[i]] for i in range(b)]
+        idxs = self._rerank(batch, cands, sizes, k)
+        return idxs, [cands[i][idxs[i]] for i in range(b)]
+
+    def _rerank_on_device(self, batch, tgt_dev, sizes, k: int):
+        """Scores the candidates without a host round trip when the text
+        ranker can (ClapRanker.score_on_device: clips within the 10 s CLAP
+        window at its sample rate). Returns the winners' indices, or None
+        for the host path."""
+        r = self.text_ranker
+        if r is None or not hasattr(r, "supports_on_device"):
+            return None
+        if not r.supports_on_device(sizes, self.sample_rate):
+            return None
+        scores = r.score_on_device(tgt_dev.reshape(len(sizes), k, -1), sizes,
+                                   batch.descriptions)
+        return [int(i) for i in torch.argmax(scores, dim=1).cpu()]
+
+    def _rerank(self, batch, target, sizes, k: int):
+        """Host path: target is per item a (k, T_i) array."""
+        b = len(target)
+        audios = np.asarray(batch.audios)
+        # the mixture, zero-padded to the frame-rounded size of the targets
+        mixes = [np.pad(audios[i, 0, :sizes[i]], (0, max(0, sizes[i] - audios.shape[-1])))
+                 for i in range(b)]
+        kwargs = dict(
+            extracted_audio=target,
+            input_audio=[np.broadcast_to(m, (k, m.shape[0])) for m in mixes],
+            descriptions=batch.descriptions, sample_rate=self.sample_rate)
+        if batch.anchors is not None:
+            kwargs["spans"] = batch.anchors
+        return [int(i) for i in np.argmax(np.asarray(self.text_ranker(**kwargs)), axis=1)]

@@ -29,7 +29,7 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "kernels"
-KERNEL_SOURCES = ("fused_attention", "flash_attention", "fused_conv")
+KERNEL_SOURCES = ("fused_attention", "flash_attention", "fused_conv", "int4_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

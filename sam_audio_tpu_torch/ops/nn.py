@@ -19,6 +19,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from sam_audio_tpu_torch.ops.quant import linear_int4, linear_int8
+
 
 def _cast_pair(x: torch.Tensor, w: torch.Tensor, compute_dtype):
     dtype = compute_dtype or torch.promote_types(x.dtype, w.dtype)
@@ -26,6 +28,10 @@ def _cast_pair(x: torch.Tensor, w: torch.Tensor, compute_dtype):
 
 
 def linear(params, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None):
+    if "w8" in params:  # int8 serving mode (ops/quant.py)
+        return linear_int8(params, x, compute_dtype)
+    if "w4" in params:  # int4 weight storage, kernel 4 (ops/quant.py)
+        return linear_int4(params, x, compute_dtype)
     x, w = _cast_pair(x, params["weight"], compute_dtype)
     y = torch.matmul(x, w.t())
     if "bias" in params:

@@ -2,7 +2,12 @@
 """Where the time of one text-prompted separate() goes, for the PyTorch port
 on one NVIDIA GPU (default SAMAudioConfig, random weights, bf16, k=1).
 
-    python3 -m sam_audio_tpu_torch.profile_separate [--seconds 10] [--trace out.json]
+    python3 -m sam_audio_tpu_torch.profile_separate [--seconds 10] [--bits 4|8]
+        [--candidates 8] [--trace out.json]
+
+`--bits` quantizes the model first (SAMAudio.quantize); `--candidates k`
+profiles separate(reranking_candidates=k) with a CLAP ranker of random
+weights scoring on the card (the stage times stay those of k=1).
 
 Prints, each as one JSON line:
   * `stages`: host-clock ms of each stage of separate() (codec encode, T5,
@@ -36,7 +41,8 @@ def _ms(fn):
 
 def _group(name: str) -> str:
     n = name.lower()
-    if "fused_glue_attention" in n or "flash_attention_kernel" in n or "res_unit" in n:
+    if ("fused_glue_attention" in n or "flash_attention_kernel" in n or "res_unit" in n
+            or "int4_" in n):
         return "port kernels"
     if "gemm" in n or "gemv" in n or "cutlass" in n or "matmul" in n or "xmma" in n:
         return "matrix products"
@@ -51,6 +57,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--seconds", type=float, default=10.0)
+    ap.add_argument("--bits", type=int, choices=(4, 8), default=None)
+    ap.add_argument("--candidates", type=int, default=1)
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -71,6 +79,13 @@ def main() -> int:
     cfg = SAMAudioConfig()
     model = SAMAudio.init_random(cfg, seed=0, device="cuda",
                                  tokenizer=ByteFallbackTokenizer(cfg.text_encoder.vocab_size))
+    if args.bits:
+        model.quantize(args.bits)
+    if args.candidates > 1:
+        from sam_audio_tpu_torch.config import ClapRankerConfig
+        from sam_audio_tpu_torch.ranking.clap import ClapRanker
+
+        model.text_ranker = ClapRanker(ClapRankerConfig(), allow_random=True, device="cuda")
     proc = SAMAudioProcessor(cfg.audio_codec.hop_length, cfg.audio_codec.sample_rate)
     n = int(args.seconds * cfg.audio_codec.sample_rate)
     rng = np.random.RandomState(0)
@@ -78,7 +93,8 @@ def main() -> int:
            + 0.05 * rng.randn(n)).astype(np.float32)
     batch = proc(descriptions=["a dog barking"], audios=[wav])
     gen = torch.Generator(device="cuda").manual_seed(0)
-    model.separate(batch, generator=gen)  # warm-up (cuDNN/cuBLAS plans)
+    k = args.candidates
+    model.separate(batch, generator=gen, reranking_candidates=k)  # warm-up (plans)
 
     # stages, as separate_latents runs them
     p, dt = model.params, DTYPES[cfg.compute_dtype]
@@ -116,7 +132,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = _ms(lambda: model.separate(batch, generator=gen))
+        _, wall = _ms(lambda: model.separate(batch, generator=gen, reranking_candidates=k))
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) is not None
                and str(e.device_type).endswith("CUDA")
@@ -129,7 +145,7 @@ def main() -> int:
         g["launches"] += e.count
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
     print(json.dumps({"profile": {
-        "wall_ms": wall, "device_busy_ms": busy_us / 1e3,
+        "bits": args.bits, "candidates": k, "wall_ms": wall, "device_busy_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1 - busy_us / 1e3 / wall),
         "kernel_launches": sum(e.count for e in kernels),
         "groups": groups,

@@ -6,8 +6,9 @@ JAX nor the JAX package, so it also runs where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 
 Tolerances: fp32 1e-4 (another summation order); bf16 2e-2 for attention
-and 5e-2 for the residual unit (a value near a bf16 rounding boundary can
-round the other way in one sum order, one bf16 ulp being 2^-8 of it)."""
+and the int4 product, 5e-2 for the residual unit (a value near a bf16
+rounding boundary can round the other way in one sum order, one bf16 ulp
+being 2^-8 of it)."""
 
 import pytest
 import torch
@@ -22,6 +23,8 @@ from sam_audio_tpu_torch.ops.fused_conv import (
     fused_residual_unit_plain,
     residual_unit_operands,
 )
+from sam_audio_tpu_torch.ops.int4_matmul import matmul_int4, matmul_int4_plain
+from sam_audio_tpu_torch.ops.quant import quantize_linear_int4
 from sam_audio_tpu_torch.ops.rope import precompute_rope
 
 H, D = 2, 128
@@ -99,3 +102,30 @@ def test_cuda_residual_unit_launches_kernel(cuda, dtype, tol):
 def test_cuda_residual_unit_refuses_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         fused_residual_unit(_unit(cuda, 40, 1), torch.randn(1, 40, 64, device=cuda), 1)
+
+
+def _int4(dev, out, din, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return quantize_linear_int4({"weight": 0.1 * torch.randn(out, din, generator=g,
+                                                             device=dev)})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("tokens,out,din", [(250, 256, 512), (14, 200, 768), (77, 64, 160)],
+                         ids=["k1-tokens", "few-tokens-ragged-out", "group-80"])
+def test_cuda_matmul_int4_launches_kernel(cuda, dtype, tol, tokens, out, din):
+    q = _int4(cuda, out, din, tokens)
+    x = torch.randn(tokens, din, device=cuda).to(dtype)
+    n = matmul_int4.launches
+    y = matmul_int4(x, q["w4"], q["w4_scale"])
+    assert matmul_int4.launches == n + 1 and y.dtype == dtype and y.shape == (tokens, out)
+    ref = matmul_int4_plain(x, q["w4"], q["w4_scale"])
+    torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_int4_refuses_what_it_cannot_take(cuda):
+    q = _int4(cuda, 16, 120, 0)   # group 120: not a multiple of 16
+    with pytest.raises(ValueError):
+        matmul_int4(torch.randn(4, 120, device=cuda), q["w4"], q["w4_scale"])

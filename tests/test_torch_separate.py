@@ -142,9 +142,12 @@ def test_tokenizer_ids_and_text_padding(tmp_path):
 def test_unported_options_raise(tmp_path):
     cfg, _, tm = _snapshot(tmp_path)
     batch = _batch(cfg, SAMAudioProcessor)
-    for kwargs in ({"predict_spans": True}, {"preview_nfe": 8}, {"visual_stride": 2}):
+    for kwargs in ({"predict_spans": True}, {"visual_stride": 2}):
         with pytest.raises(NotImplementedError):
             tm.separate(batch, **kwargs)
+    # preview_nfe is ported: without a ranker it is ignored, as in JAX
+    assert np.isfinite(tm.separate(batch, reranking_candidates=2, preview_nfe=8,
+                                   generator=torch.Generator().manual_seed(0)).target[0]).all()
     with pytest.raises(NotImplementedError, match="streaming"):
         tm.separate(batch, max_direct_seconds=0.001)
     proc = SAMAudioProcessor(cfg.audio_codec.hop_length, cfg.audio_codec.sample_rate)
