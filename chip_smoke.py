@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (sam_audio_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels 2,4    (phases 1-3 for the listed kernels, then stop)
 
 Phases (any failure exits non-zero):
   1. device  — require CUDA; print the card's name and power limit; TF32 off.
@@ -11,8 +12,10 @@ Phases (any failure exits non-zero):
                (bf16 at the main-path shapes, plus an fp32 case; padded and
                fully masked rows for the attention kernels, dilations 1/3/9
                for the residual unit, 250/2000/14 tokens for the int4
-               product); time kernel, plain version and one PyTorch library
-               call as a yardstick.
+               product, whose two runs must give the same bits); time kernel,
+               plain version and one PyTorch library call as a yardstick, the
+               kernel and the library call also with the host out of the
+               window (`device_ms`: a CUDA graph of the calls, replayed).
   4. small   — a small model in fp32 through separate() on the card (the
                kernels) and on the CPU (the plain versions): must agree; then
                the same after quantize(bits=4).
@@ -78,6 +81,31 @@ def time_ms(fn, iters: int = 20, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, replays: int = 3) -> float:
+    """Mean device ms per call with the host out of the window: `iters` calls
+    are captured in one CUDA graph and the graph's replay is timed with CUDA
+    events (the mean of `replays` replays)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (iters * replays)
 
 
 def max_err(a, b):
@@ -161,13 +189,16 @@ def check_fused_attention(results):
     kn = _norm_rope(k, kw, cos, sin, 1e-5).transpose(1, 2)
     vt = v.transpose(1, 2)
     lib = time_ms(lambda: F.scaled_dot_product_attention(qn, kn, vt))
+    dev = device_ms(lambda: fused_glue_attention(q, k, v, qw, kw, cos, sin, mask))
+    lib_dev = device_ms(lambda: F.scaled_dot_product_attention(qn, kn, vt))
     t = 250
     flops = 4 * t * t * d * h
     nbytes = 4 * t * h * d * 2 + 2 * d * 4 + 2 * t * d // 2 * 4 + t
     bms, by = bound_ms(flops, nbytes)
-    log(f"  main shape (1, 250, 16, 128) bf16: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bms:.5f} ms ({by})")
-    results.update(name="fused_glue_attention", per_launch=(ms, plain, lib, bms, by),
+    log(f"  main shape (1, 250, 16, 128) bf16: kernel {ms:.4f} ms (device {dev:.4f}), plain "
+        f"{plain:.4f} ms, SDPA {lib:.4f} ms (device {lib_dev:.4f}), bound {bms:.5f} ms ({by})")
+    results.update(name="fused_glue_attention",
+                   per_launch=(ms, plain, lib, bms, by, dev, lib_dev),
                    max_abs_err=max(errs), tolerance="bf16 atol 2e-2 + rtol 2e-2; "
                    "fp32 atol 1e-4 + rtol 1e-4")
 
@@ -200,16 +231,21 @@ def check_flash_attention(results):
     t = 1125
     q, k, v, mask = _attn_inputs(1, t, h, d, torch.bfloat16, seed=3,
                                  masked_rows=False)
+    require(torch.equal(flash_attention(q, k, v), flash_attention(q, k, v, mask)),
+            "flash_attention: no mask and an all-true mask differ")
     ms = time_ms(lambda: flash_attention(q, k, v, mask))
     plain = time_ms(lambda: flash_attention_plain(q, k, v, mask), iters=5)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     lib = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    dev = device_ms(lambda: flash_attention(q, k, v, mask))
+    lib_dev = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     flops = 4 * t * t * d * h
     nbytes = 4 * t * h * d * 2 + t
     bms, by = bound_ms(flops, nbytes)
-    log(f"  main shape (1, 1125, 16, 128) bf16: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bms:.5f} ms ({by})")
-    results.update(name="flash_attention", per_launch=(ms, plain, lib, bms, by),
+    log(f"  main shape (1, 1125, 16, 128) bf16: kernel {ms:.4f} ms (device {dev:.4f}), plain "
+        f"{plain:.4f} ms, SDPA {lib:.4f} ms (device {lib_dev:.4f}), bound {bms:.5f} ms ({by})")
+    results.update(name="flash_attention",
+                   per_launch=(ms, plain, lib, bms, by, dev, lib_dev),
                    max_abs_err=max(errs), tolerance="bf16 atol 2e-2 + rtol 2e-2; "
                    "fp32 atol 1e-4 + rtol 1e-4")
 
@@ -252,7 +288,7 @@ def check_fused_conv(results):
 
     errs = []
     totals = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "flops": 0.0,
-              "bytes": 0.0}
+              "bytes": 0.0, "dev": 0.0, "lib_dev": 0.0}
     per_shape = []
     g = torch.Generator(device=DEVICE).manual_seed(11)
     for c, t in ENCODER_SHAPES + DECODER_SHAPES:
@@ -268,21 +304,21 @@ def check_fused_conv(results):
             ops = residual_unit_operands(p, x, torch.bfloat16)
             plain = time_ms(lambda: fused_residual_unit_plain(*ops, dil), iters=reps)
             lib = time_ms(lambda: library_chain(p, x, dil), iters=reps)
+            dev = device_ms(lambda: fused_residual_unit(p, x, dil, torch.bfloat16), iters=reps)
+            lib_dev = device_ms(lambda: library_chain(p, x, dil), iters=reps)
             flops = 2 * 8 * c * c * t
             nbytes = 2 * c * t * 2 + 8 * c * c * 2 + 4 * c * 4
             bms, _ = bound_ms(flops, nbytes)
             # encoder shapes run once per separate, decoder shapes twice
             n = 1 if (c, t) in ENCODER_SHAPES else 2
-            totals["ms"] += n * ms
-            totals["plain"] += n * plain
-            totals["lib"] += n * lib
-            totals["bound"] += n * bms
-            totals["flops"] += n * flops
-            totals["bytes"] += n * nbytes
-            per_shape.append(dict(C=c, T=t, dilation=dil, ms=ms, plain_ms=plain,
-                                  library_ms=lib, bound_ms=bms))
-            log(f"    kernel {ms:.3f} ms, plain {plain:.3f} ms, conv1d chain "
-                f"{lib:.3f} ms, bound {bms:.4f} ms")
+            for key, val in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", bms),
+                             ("flops", flops), ("bytes", nbytes), ("dev", dev),
+                             ("lib_dev", lib_dev)):
+                totals[key] += n * val
+            per_shape.append(dict(C=c, T=t, dilation=dil, ms=ms, device_ms=dev, plain_ms=plain,
+                                  library_ms=lib, library_device_ms=lib_dev, bound_ms=bms))
+            log(f"    kernel {ms:.3f} ms (device {dev:.3f}), plain {plain:.3f} ms, conv1d chain "
+                f"{lib:.3f} ms (device {lib_dev:.3f}), bound {bms:.4f} ms")
     x = torch.randn(2, 64, 3000, generator=g, device=DEVICE)
     for dil in (1, 3, 9):
         p = unit(64, seed=dil)
@@ -323,7 +359,7 @@ def check_matmul_int4(results, cfg):
     dim, ffn = cfg.transformer.dim, cfg.transformer.ffn_hidden_dim
     g = torch.Generator(device=DEVICE).manual_seed(13)
     totals = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "flops": 0.0,
-              "bytes": 0.0}
+              "bytes": 0.0, "dev": 0.0, "lib_dev": 0.0}
     errs, per_shape = [], []
     for out, din in ((dim, dim), (ffn, dim), (dim, ffn), (dim, cfg.in_channels)):
         q = quantize_linear_int4({"weight": torch.randn(out, din, generator=g, device=DEVICE)
@@ -341,21 +377,28 @@ def check_matmul_int4(results, cfg):
             torch.cuda.synchronize()
             errs.append(check_close(f"bf16 tokens={tokens} (out, in)=({out}, {din})", y, ref,
                                     2e-2, 2e-2))
+            require(torch.equal(y, matmul_int4(x, w4, s)),
+                    "matmul_int4: two runs on one input differ (the reduction must be "
+                    "deterministic)")
             ms = time_ms(lambda: matmul_int4(x, w4, s))
             plain = time_ms(lambda: matmul_int4_plain(x, w4, s), iters=5)
             lib = time_ms(lambda: torch.matmul(x, w_deq.t()))
+            dev = device_ms(lambda: matmul_int4(x, w4, s))
+            lib_dev = device_ms(lambda: torch.matmul(x, w_deq.t()))
             flops = 2 * tokens * din * out
             nbytes = tokens * din * 2 + w4.numel() + s.numel() * 4 + tokens * out * 2
             bms, by = bound_ms(flops, nbytes)
             n = k1.get((out, din, tokens), 0)
             for key, v in (("ms", ms), ("plain", plain), ("lib", lib), ("bound", bms),
-                           ("flops", flops), ("bytes", nbytes)):
+                           ("flops", flops), ("bytes", nbytes), ("dev", dev),
+                           ("lib_dev", lib_dev)):
                 totals[key] += n * v
-            per_shape.append(dict(out=out, din=din, tokens=tokens, ms=ms, plain_ms=plain,
-                                  library_ms=lib, bound_ms=bms, bound_by=by,
-                                  launches_per_separate_k1=n))
-            log(f"    kernel {ms:.4f} ms, plain {plain:.4f} ms, matmul of the dequantized "
-                f"weight {lib:.4f} ms, bound {bms:.5f} ms ({by}); {n} launches at k=1")
+            per_shape.append(dict(out=out, din=din, tokens=tokens, ms=ms, device_ms=dev,
+                                  plain_ms=plain, library_ms=lib, library_device_ms=lib_dev,
+                                  bound_ms=bms, bound_by=by, launches_per_separate_k1=n))
+            log(f"    kernel {ms:.4f} ms (device {dev:.4f}), plain {plain:.4f} ms, matmul of the "
+                f"dequantized weight {lib:.4f} ms (device {lib_dev:.4f}), bound {bms:.5f} ms "
+                f"({by}); {n} launches at k=1")
         if (out, din) == (dim, dim):
             x = torch.randn(250, din, generator=g, device=DEVICE)
             y = matmul_int4(x, w4, s)
@@ -633,10 +676,18 @@ def main() -> int:
     # 3. kernels vs plain
     cfg = SAMAudioConfig()
     k1, k2, k3, k4 = {}, {}, {}, {}
-    check_fused_attention(k1)
-    check_flash_attention(k2)
-    check_fused_conv(k3)
-    check_matmul_int4(k4, cfg)
+    checks = {"1": lambda: check_fused_attention(k1), "2": lambda: check_flash_attention(k2),
+              "3": lambda: check_fused_conv(k3), "4": lambda: check_matmul_int4(k4, cfg)}
+    if len(sys.argv) > 2 and sys.argv[1] == "--kernels":
+        # a short run for work on a kernel: no model, no result line
+        for number in sys.argv[2].split(","):
+            checks[number]()
+        log(json.dumps({"matmul_int4_shapes": k4.get("per_shape"),
+                        "flash_attention": k2.get("per_launch")}))
+        log(smi)
+        return 0
+    for check in checks.values():
+        check()
 
     # 4. small model: card vs CPU, exact and int4
     small_agreement()
@@ -691,7 +742,7 @@ def main() -> int:
         {"matmul_int4": 0, "fused_glue_attention": n_layers * nfe,
          "fused_residual_unit": 36, "flash_attention": 0})
 
-    def entry(res, source, replaces, launches, ms, plain, lib, bms, by):
+    def entry(res, source, replaces, launches, ms, plain, lib, bms, by, dev, lib_dev):
         # "tpu_source", "max_err" and "kernel_ms" repeat "replaces",
         # "max_abs_err" and "ms" under a second set of names that readers use
         return {"name": res["name"], "route": "cuda", "source": source,
@@ -699,8 +750,10 @@ def main() -> int:
                 "max_abs_err": res["max_abs_err"], "max_err": res["max_abs_err"],
                 "max_abs_err_fp32": res["fp32_err"], "tolerance": res["tolerance"],
                 "ms": ms, "kernel_ms": ms, "plain_ms": plain, "bound_ms": bms,
-                "bound_by": by, "library_ms": lib,
-                "ms_scope": "device time of one separate's launches"}
+                "bound_by": by, "library_ms": lib, "device_ms": dev,
+                "library_device_ms": lib_dev,
+                "ms_scope": "one separate's launches; ms and library_ms include the host "
+                            "wrapper, device_ms and library_device_ms are CUDA-graph replays"}
 
     kernels = []
     for res, src, rep, n in (
@@ -708,8 +761,9 @@ def main() -> int:
              "sam_audio_tpu/ops/fused_attention.py:151", counts["fused_glue_attention"]),
             (k2, "sam_audio_tpu_torch/csrc/flash_attention.cu",
              "sam_audio_tpu/ops/flash_attention.py:99", long_counts["flash_attention"])):
-        ms, plain, lib, bms, by = res["per_launch"]
-        kernels.append(entry(res, src, rep, n, ms * n, plain * n, lib * n, bms * n, by))
+        ms, plain, lib, bms, by, dev, lib_dev = res["per_launch"]
+        kernels.append(entry(res, src, rep, n, ms * n, plain * n, lib * n, bms * n, by,
+                             dev * n, lib_dev * n))
     for res, src, rep, n in (
             (k3, "sam_audio_tpu_torch/csrc/fused_conv.cu",
              "sam_audio_tpu/ops/fused_conv.py:105", counts["fused_residual_unit"]),
@@ -717,7 +771,7 @@ def main() -> int:
              "sam_audio_tpu/ops/int4_matmul.py:86", int4["launches"]["matmul_int4"])):
         tot = res["totals"]
         kernels.append(entry(res, src, rep, n, tot["ms"], tot["plain"], tot["lib"],
-                             tot["bound"], res["bound_by"]))
+                             tot["bound"], res["bound_by"], tot["dev"], tot["lib_dev"]))
     summary = {"main_10s": {"p50_ms": p50(times), "runs_ms": times, "first_ms": first_ms,
                             "realtime_factor": MIXTURE_SECONDS * 1e3 / p50(times),
                             "peak_bytes": peak, "launches": counts},

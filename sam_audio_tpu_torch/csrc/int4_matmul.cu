@@ -7,57 +7,72 @@
 // before it is added, and the result is rounded once to x's dtype (no bias).
 // Replaces sam_audio_tpu/ops/int4_matmul.py::matmul_int4 (`_kernel`).
 //
-// Design: a block owns BM tokens x BN packed rows, so one read of the packed
-// tile feeds both output planes (rows p..p+BN and half+p..half+p+BN). It walks
-// the contraction axis in chunks of KC columns (KC divides the group):
-//   bf16: the x chunk and the packed bytes go to shared memory with 16-byte
-//         cp.async copies, three chunks in flight; the nibbles are
-//         sign-extended to bf16 in shared memory (a byte permute and one
-//         bf16x2 subtraction per two values), and the products run on the
-//         tensor cores (ldmatrix + mma.sync m16n8k16, fp32 accumulation) into
-//         a per-group partial, which is scaled and added to the fp32
-//         accumulator at each group's end.
-//   fp32: the same tiling with FMA products, each thread a 4-token x
-//         (4 low + 4 high)-column register block.
-// Masked loads (zero fill) replace the TPU kernel's padding of the tokens to
-// 8, so any token count runs. What bounds it on the H100: at the DiT's shapes
-// and 250 tokens, 2*M*K*N operations on the tensor cores (near the ridge);
-// only cross-attention's k/v projections at ~14 tokens are bound by the
-// weight bytes. The kernel is far from that bound: a block walks all of K
-// alone (the time grows with K and barely with the tokens), and the
-// (2048, .) shapes fill 64 of the 132 SMs. Split-K, wgmma and TMA are later
-// work.
+// What bounds it on the H100: at the DiT's shapes and 250 tokens, 2*M*K*N
+// operations on the tensor cores (near the ridge); only cross-attention's k/v
+// projections at ~14 tokens are bound by the weight bytes.
+//
+// Design, bf16 (the path that carries the launches): y^T = W . x^T, so that
+// the 64 rows a wgmma wants are output rows and a few tokens cost a narrow
+// instruction (N = 16), not a padded 64-row tile.
+//   Tiles:    a block owns 64 packed rows x NT tokens (16 or 64 when they
+//             hold M, else 128) x one split of the groups. Two consumer
+//             warpgroups each make one nibble plane (64 outputs x NT tokens)
+//             from the same staged bytes: one read of a packed byte feeds
+//             both, and a warpgroup sign-extends only its own nibble.
+//   Split-K:  a group's partial is scaled and then summed, so sums over
+//             disjoint sets of groups add exactly in fp32. grid.z blocks
+//             share the groups of one tile (split s takes groups
+//             [s*G/S, (s+1)*G/S)), each writes its fp32 partial to a
+//             workspace, and a second small kernel adds the splits in order
+//             and rounds once: no atomics, the same bits run to run. With one
+//             split the block rounds and writes the output itself. (A
+//             thread-block cluster a tile, reducing through distributed
+//             shared memory, was tried and took twice as long: clusters of 4
+//             to 8 blocks that each fill an SM are slow to place.)
+//   Copies:   one lane of a third warpgroup fetches the x chunk (NT x 128
+//             columns, two 128-byte-swizzled tiles) and the packed bytes
+//             (64 rows x 128, swizzled too) through TMA into a ring of five
+//             stages guarded by mbarriers; zero fill past M, past out/2 and
+//             past K. The consumers make no copy and meet at no block-wide
+//             barrier. setmaxnreg moves the producer's registers to them.
+//   Unpack:   each thread reads its own 2-byte pairs of the packed tile (all
+//             of a chunk's loads first) and sign-extends them in registers
+//             (a byte permute, one logic operation and one bf16x2
+//             subtraction per two values) straight into the A fragment: no
+//             unpacked copy in shared memory.
+//   Products: wgmma m64nNTk16 with A from registers and the x tile as the
+//             shared-memory B operand, started step by step so that the next
+//             step's unpack runs under the previous step's product; fp32
+//             partial per group, times the group's scale, into the fp32
+//             accumulator (groups of any multiple of 16 columns).
+//   What holds it back (PERF.md): a chunk costs a block ~1.1 us where its
+//             products take 0.5 and its copies 0.4, and they add instead of
+//             overlapping (both go through shared memory); at 250 tokens two
+//             thirds of a launch are fixed costs (two launches, the ring's
+//             fill, the workspace).
+//   fp32: a block of 64 tokens x 64 packed rows walks all of K with FMA
+//         products, each thread a 4-token x (4 low + 4 high)-column register
+//         block.
+// Masked copies (zero fill) replace the TPU kernel's padding of the tokens to
+// 8, so any token count runs.
 
 #include <initializer_list>
 
 #include "common.cuh"
+#include "sm90.cuh"
+#include "tensor_map.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
+// fp32 path
 constexpr int THREADS = 256;
 constexpr int BM = 64;        // tokens per block
 constexpr int BN = 64;        // packed rows per block (64 low + 64 high outputs)
 constexpr int KC = 128;       // largest contraction chunk staged per step
-constexpr int LDX = KC + 8;   // bf16 row stride of staged x and unpacked w
-constexpr int LDP = KC;       // byte row stride of the staged packed tile
-constexpr int STAGES = 3;     // bf16 path: chunks of x and packed bytes in flight
 constexpr int LDXF = KC + 4;  // fp32 path: row stride of staged x
 constexpr int LDN = BN + 4;   // fp32 path: row stride of the k-major unpacked w
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;  // 0 source bytes: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // the sign-extended 4-bit value in bits [shift, shift + 4) of v
 __device__ __forceinline__ float nibble(uint32_t v, int shift) {
@@ -67,9 +82,12 @@ __device__ __forceinline__ float nibble(uint32_t v, int shift) {
 
 // The nibbles in bits 0-3 and 16-19 of v, sign-extended, as two bf16 (bits
 // 0-3 in the low half). 0x4300 | (n ^ 8) is the bf16 of 128 + (n ^ 8), and
-// subtracting 136 leaves (n ^ 8) - 8, the signed value, exactly.
+// subtracting 136 leaves (n ^ 8) - 8, the signed value, exactly. The bit
+// select is one three-input logic operation: (v ^ 8) under the nibble mask,
+// the constant elsewhere.
 __device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t v) {
-  const uint32_t biased = ((v & 0x000F000Fu) ^ 0x00080008u) | 0x43004300u;
+  constexpr uint32_t MASK = 0x000F000Fu, BITS = 0x43084308u;
+  const uint32_t biased = (MASK & (v ^ BITS)) | (~MASK & BITS);
   const __nv_bfloat162 r = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&biased),
                                    __floats2bfloat162_rn(136.f, 136.f));
   return *reinterpret_cast<const uint32_t*>(&r);
@@ -77,167 +95,228 @@ __device__ __forceinline__ uint32_t nibbles_to_bf16x2(uint32_t v) {
 
 // ---------------------------------------------------------------- bf16 path
 
-// ldmatrix .x4: lane l gives the row address of matrix l / 8; each lane gets
-// its (row l / 4, columns 2 * (l % 4) ..+1) pair of each of the four matrices
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
+constexpr int WCONSUMERS = 256;  // two warpgroups: one for each nibble plane
+constexpr int WTHREADS = WCONSUMERS + 128;  // plus the producer's warpgroup
+constexpr int WBN = 64;         // packed rows per block: wgmma's 64 rows, in both planes
+constexpr int WKC = 128;        // staged columns per chunk: two 64-column swizzled tiles of x
+constexpr int WSTAGES = 5;      // chunks of x and packed bytes in flight
+constexpr int WPACKED = WBN * WKC;  // bytes of a staged packed tile
+
+constexpr size_t wgmma_smem_bytes(int nt) {
+  return (size_t)WSTAGES * (nt * WKC * sizeof(bf16) + WPACKED) + 1024;  // + alignment slack
 }
 
-// 8 warps: warp (wm, wn) owns tokens wm*16 .. +15 and packed columns
-// wn*32 .. +31 of the block, i.e. 4 n-tiles of 8 in each of the two planes.
-// KCT, the staged chunk, is a template argument so that every index below is
-// a shift or a constant and the product loop unrolls.
-template <int KCT>
-__global__ void __launch_bounds__(THREADS)
-    int4_mma_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w4,
-                    const float* __restrict__ scale, bf16* __restrict__ out, int M, int K,
-                    int half, int G, int gs) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);                          // [STAGES][BM][LDX]
-  uint8_t* ps = smem + STAGES * BM * LDX * sizeof(bf16);             // [STAGES][BN][LDP]
-  bf16* ws = reinterpret_cast<bf16*>(ps + STAGES * BN * LDP);        // [2 planes][BN][LDX]
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
-  const int m0 = blockIdx.y * BM, p0 = blockIdx.x * BN;
-  const int nchunks = K / KCT, cpg = gs / KCT;
+template <int NT>
+__device__ __forceinline__ void wgmma_rs(float (&d)[NT / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int accumulate) {
+  if constexpr (NT == 128) sa::wgmma_m64n128k16_rs(d, a, desc_b, accumulate);
+  else if constexpr (NT == 64) sa::wgmma_m64n64k16_rs(d, a, desc_b, accumulate);
+  else sa::wgmma_m64n16k16_rs(d, a, desc_b, accumulate);
+}
 
-  auto copy_chunk = [&](int c, int stage) {
-    const int k0 = c * KCT;
-    bf16* xd = xs + stage * BM * LDX;
-    constexpr int XCPR = KCT / 8;  // 16-byte copies per x row
+// y^T = W . x^T for one (64 packed rows, NT tokens, split of the groups)
+// tile. Warpgroup 0 makes the low-nibble plane (outputs p0 ..), warpgroup 1
+// the high-nibble plane (outputs half + p0 ..), both from the one staged copy
+// of the packed bytes and of x; one lane of warpgroup 2 fetches the chunks.
+// Thread t of a consumer warpgroup (w = t / 32, g = t % 32 / 4, q = t % 4)
+// owns packed rows 16 w + g and + 8 and tokens 8 j + 2 q, + 1. map_x: x as
+// (M, K) bf16 in boxes of NT rows x 64 columns; map_w: w4 as (half, K) bytes
+// in boxes of 64 rows x 128 bytes; both with the 128-byte swizzle and zero
+// fill past the edges. grid: (row tiles, token tiles, splits). With one split
+// the block rounds and writes `out`; with more it writes its fp32 partial to
+// ws[split][token][out]. FULL: the group is 128 columns, a whole chunk (the
+// usual case); otherwise any multiple of 16, with the group ends checked step
+// by step.
+template <int NT, bool FULL>
+__global__ void __launch_bounds__(WTHREADS, 1)
+    int4_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
+                      const __grid_constant__ CUtensorMap map_w,
+                      const float* __restrict__ scale, bf16* __restrict__ out,
+                      float* __restrict__ ws, int M, int half, int G, int gs) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t bars[2 * WSTAGES];  // per stage: chunk arrived, chunk free
+  constexpr int XHALF = NT * 128;        // bytes of one swizzled NT x 64 tile of x
+  constexpr int XSTAGE = 2 * XHALF;
+  constexpr int NACC = NT / 2;
+  const uint32_t xs = (sa::smem_u32(smem_raw) + 1023u) & ~1023u;  // [WSTAGES][2][NT][128 B]
+  const uint32_t ps = xs + WSTAGES * XSTAGE;                      // [WSTAGES][WBN][128 B]
+  const unsigned char* ps_gen = smem_raw + (ps - sa::smem_u32(smem_raw));
+  const uint32_t full = sa::smem_u32(&bars[0]), empty = sa::smem_u32(&bars[WSTAGES]);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int p0 = blockIdx.x * WBN, m0 = blockIdx.y * NT;
+  const int splits = gridDim.z, split = blockIdx.z;
+  // this block's groups: [g_begin, g_end), every group in exactly one split
+  const int g_begin = (int)((long long)split * G / splits);
+  const int g_end = (int)((long long)(split + 1) * G / splits);
+  const int k_begin = g_begin * gs, k_end = g_end * gs;
+  const int nchunks = (k_end - k_begin + WKC - 1) / WKC;
+
+  if (tid == 0) {
+    for (int st = 0; st < WSTAGES; ++st) {
+      sa::mbar_init(full + 8 * st, 1);
+      sa::mbar_init(empty + 8 * st, WCONSUMERS);
+    }
+    sa::mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Three warpgroups are compiled for 168 registers a thread and the
+  // consumers need about 216: the producer's warpgroup (a whole one, so that
+  // what it hands back covers it) drops to 24 and each consumer takes 232.
+  if (tid >= WCONSUMERS) {
+    // ---- producer: one lane keeps WSTAGES chunks in flight ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid != WCONSUMERS) return;
+    for (int c = 0; c < nchunks; ++c) {
+      const int st = c % WSTAGES, k0 = k_begin + c * WKC;
+      // the first pass over the ring finds every stage free
+      sa::mbar_wait(empty + 8 * st, ((c / WSTAGES) & 1) ^ 1);
+      const uint32_t bar = full + 8 * st;
+      sa::mbar_arrive_expect_tx(bar, XSTAGE + WPACKED);
+      sa::tma_load_2d(xs + st * XSTAGE, &map_x, bar, k0, m0);
+      sa::tma_load_2d(xs + st * XSTAGE + XHALF, &map_x, bar, k0 + 64, m0);
+      sa::tma_load_2d(ps + st * WPACKED, &map_w, bar, k0, p0);
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int plane = tid >> 7, warp = (tid >> 5) & 3;  // warpgroup, warp within it
+  const int g = lane >> 2, q = lane & 3;
+  const int steps_per_group = gs / 16;
+  float acc[NACC], part[NACC];
 #pragma unroll
-    for (int e = tid; e < BM * XCPR; e += THREADS) {
-      const int r = e / XCPR, c8 = (e % XCPR) * 8;
-      const bool ok = m0 + r < M;
-      cp_async16(xd + r * LDX + c8, ok ? x + (size_t)(m0 + r) * K + k0 + c8 : x, ok);
+  for (int i = 0; i < NACC; ++i) acc[i] = part[i] = 0.f;
+
+  // this thread's scales of group gi: rows g and g + 8 of its plane
+  auto load_scales = [&](int gi, float (&sc)[2]) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = p0 + warp * 16 + g + 8 * h;
+      sc[h] = row < half ? __ldg(scale + (size_t)(plane * half + row) * G + gi) : 0.f;
     }
-    uint8_t* pd = ps + stage * BN * LDP;
-    constexpr int PCPR = KCT / 16;  // 16-byte copies per packed row
-    for (int e = tid; e < BN * PCPR; e += THREADS) {
-      const int r = e / PCPR, c16 = (e % PCPR) * 16;
-      const bool ok = p0 + r < half;
-      cp_async16(pd + r * LDP + c16, ok ? w4 + (size_t)(p0 + r) * K + k0 + c16 : w4, ok);
+  };
+  // This thread's bytes of the chunk: rows 16 w + g and + 8, 2-byte pairs 2 q
+  // and 2 q + 8 of each 16-byte piece; piece ks of a row lies at piece
+  // ks ^ (row % 8) = ks ^ g (the swizzle). All of a chunk's loads go out
+  // first: the asm statements of a step keep the compiler from moving a later
+  // step's loads above them, and a load's latency in every step was most of a
+  // chunk's time before its products ran.
+  auto load_packed = [&](const unsigned char* prow, uint32_t (&a)[WKC / 16][4]) {
+#pragma unroll
+    for (int ks = 0; ks < WKC / 16; ++ks) {
+      const unsigned char* piece = prow + ((ks ^ g) << 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[ks][i] = *reinterpret_cast<const uint16_t*>(piece + (i & 1) * 8 * WKC + (i >> 1) * 8);
     }
-    cp_async_commit();
+  };
+  // One 16-column step: sign-extend the step's nibbles of this plane in place
+  // into the A fragment (a0/a2 from row g, a1/a3 from row g + 8) and start the
+  // product on the x tile.
+  auto step = [&](uint32_t xd, int ks, uint32_t (&a)[4], int accumulate) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // byte 0 | byte 1 << 16, the plane's nibbles moved to the bottom
+      a[i] = nibbles_to_bf16x2(__byte_perm(a[i], 0u, 0x4140) >> (4 * plane));
+    const uint64_t desc = sa::wgmma_desc(xd + (ks >> 2) * XHALF + (ks & 3) * 32, 16, 1024);
+    sa::wgmma_fence();
+    wgmma_rs<NT>(part, a, desc, accumulate);
+    sa::wgmma_commit();
+  };
+  auto add_scaled = [&](const float (&sc)[2]) {  // acc += partial * scale
+    sa::pin_regs(part);
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] += part[i] * sc[(i >> 1) & 1];
   };
 
-  float acc[2][4][4], part[2][4][4];
-#pragma unroll
-  for (int pl = 0; pl < 2; ++pl)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[pl][j][e] = part[pl][j][e] = 0.f;
-
-  // this lane's ldmatrix row addresses: A rows wm*16 + l % 16 at k + (l / 16) * 8;
-  // B rows (packed columns) wn*32 + (l / 16) * 8 + l % 8 at k + ((l / 8) % 2) * 8
-  const int a_off = (wm * 16 + (lane & 15)) * LDX + (lane >> 4) * 8;
-  const int b_off = (wn * 32 + (lane >> 4) * 8 + (lane & 7)) * LDX + ((lane >> 3) & 1) * 8;
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < nchunks) copy_chunk(st, st);
-    else cp_async_commit();  // an empty group keeps the group count uniform
-  }
+  int gi = g_begin, in_group = 0;  // the current group and the steps done in it
+  float sc[2] = {0.f, 0.f};
   for (int c = 0; c < nchunks; ++c) {
-    const int stage = c % STAGES;
-    // at a group's end, fetch its scales first: the copy wait, the
-    // unpack and the products hide their latency
-    const bool group_end = (c + 1) % cpg == 0;
-    float sc[2][4][2];
-    if (group_end) {
-      const int gi = (c + 1) / cpg - 1;
+    const int st = c % WSTAGES;
+    if (FULL) load_scales(gi, sc);  // under the wait for the chunk
+    sa::mbar_wait(full + 8 * st, (c / WSTAGES) & 1);
+    const unsigned char* prow = ps_gen + st * WPACKED + (warp * 16 + g) * WKC + 2 * q;
+    const uint32_t xd = xs + st * XSTAGE;
+    uint32_t a[WKC / 16][4];  // a step's fragment stays put while its product runs
+    load_packed(prow, a);
+    sa::pin_regs(part);
+    if (FULL) {  // a chunk is a group: eight steps in flight, one wait
 #pragma unroll
-      for (int pl = 0; pl < 2; ++pl)
+      for (int ks = 0; ks < WKC / 16; ++ks) step(xd, ks, a[ks], ks > 0);
+    } else {
+      const int steps = min(WKC, k_end - (k_begin + c * WKC)) / 16;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int col = p0 + wn * 32 + j * 8 + 2 * q + e;
-            sc[pl][j][e] = col < half ? __ldg(scale + (size_t)(pl * half + col) * G + gi) : 0.f;
+      for (int ks = 0; ks < WKC / 16; ++ks) {
+        if (ks < steps) {
+          if (in_group == 0) load_scales(gi, sc);
+          step(xd, ks, a[ks], in_group > 0);
+          if (++in_group == steps_per_group) {
+            sa::wgmma_wait<0>();
+            add_scaled(sc);
+            in_group = 0;
+            ++gi;
           }
-    }
-
-    cp_async_wait<STAGES - 2>();  // chunk c has landed
-    // every thread has also finished chunk c - 1: its stage and the unpacked
-    // planes may be rewritten
-    __syncthreads();
-    if (c + STAGES - 1 < nchunks) copy_chunk(c + STAGES - 1, (c + STAGES - 1) % STAGES);
-    else cp_async_commit();
-
-    // sign-extend both nibble planes of the packed chunk to bf16
-    const uint8_t* pd = ps + stage * BN * LDP;
-    constexpr int WPR = KCT / 4;
-#pragma unroll
-    for (int e = tid; e < BN * WPR; e += THREADS) {
-      const int r = e / WPR, c4 = (e % WPR) * 4;
-      const uint32_t v = *reinterpret_cast<const uint32_t*>(pd + r * LDP + c4);
-      const uint32_t b01 = __byte_perm(v, 0u, 0x4140), b23 = __byte_perm(v, 0u, 0x4342);
-      uint2 lo, hi;  // bytes 0, 1 | 2, 3 spread to the two 16-bit halves
-      lo.x = nibbles_to_bf16x2(b01);
-      lo.y = nibbles_to_bf16x2(b23);
-      hi.x = nibbles_to_bf16x2(b01 >> 4);
-      hi.y = nibbles_to_bf16x2(b23 >> 4);
-      *reinterpret_cast<uint2*>(ws + r * LDX + c4) = lo;
-      *reinterpret_cast<uint2*>(ws + BN * LDX + r * LDX + c4) = hi;
-    }
-    __syncthreads();
-
-    const bf16* xa = xs + stage * BM * LDX;
-#pragma unroll
-    for (int kk = 0; kk < KCT; kk += 16) {
-      uint32_t a[4];
-      ldmatrix_x4(a, xa + a_off + kk);
-#pragma unroll
-      for (int pl = 0; pl < 2; ++pl)
-#pragma unroll
-        for (int j = 0; j < 4; j += 2) {  // n-tiles j and j + 1
-          uint32_t b[4];
-          ldmatrix_x4(b, ws + pl * BN * LDX + j * 8 * LDX + b_off + kk);
-          const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
-          sa::mma_bf16(part[pl][j], a, b0);
-          sa::mma_bf16(part[pl][j + 1], a, b1);
         }
+      }
     }
-
-    if (group_end) {  // acc += partial * scale
-#pragma unroll
-      for (int pl = 0; pl < 2; ++pl)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            acc[pl][j][e] += part[pl][j][e] * sc[pl][j][e];
-            acc[pl][j][e + 2] += part[pl][j][e + 2] * sc[pl][j][e];
-            part[pl][j][e] = part[pl][j][e + 2] = 0.f;
-          }
+    // nothing may still read this stage or the fragments when the loop turns
+    sa::wgmma_wait<0>();
+    sa::mbar_arrive(empty + 8 * st);  // the stage may be refilled
+    if (FULL) {
+      add_scaled(sc);
+      ++gi;
+    } else {
+      sa::pin_regs(part);
     }
   }
 
   const int n_out = 2 * half;
 #pragma unroll
-  for (int pl = 0; pl < 2; ++pl)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = m0 + wm * 16 + g + 8 * h;
-        if (t >= M) continue;
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = p0 + wn * 32 + j * 8 + 2 * q + e;
-          if (col < half)
-            out[(size_t)t * n_out + pl * half + col] = __float2bfloat16(acc[pl][j][2 * h + e]);
-        }
-      }
+  for (int i = 0; i < NACC; ++i) {
+    const int row = p0 + warp * 16 + g + 8 * ((i >> 1) & 1);
+    const int t = m0 + 8 * (i >> 2) + 2 * q + (i & 1);
+    if (row >= half || t >= M) continue;
+    const size_t at = (size_t)t * n_out + plane * half + row;
+    if (splits == 1) out[at] = __float2bfloat16(acc[i]);
+    else ws[(size_t)split * M * n_out + at] = acc[i];
+  }
 }
 
-size_t mma_smem_bytes() {
-  return STAGES * (BM * LDX * sizeof(bf16) + BN * LDP) + 2 * BN * LDX * sizeof(bf16);
+// out = round(sum over the splits, in order, of ws[split]): n elements, n even
+__global__ void int4_reduce_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
+                                   size_t n, int splits) {
+  const size_t i = 2 * ((size_t)blockIdx.x * blockDim.x + threadIdx.x);
+  if (i >= n) return;
+  float2 sum = *reinterpret_cast<const float2*>(ws + i);
+  for (int s = 1; s < splits; ++s) {
+    const float2 v = *reinterpret_cast<const float2*>(ws + (size_t)s * n + i);
+    sum.x += v.x;
+    sum.y += v.y;
+  }
+  *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(sum.x, sum.y);
+}
+
+template <int NT>
+int launch_wgmma(const void* x, const uint8_t* w4, const float* scale, void* out, float* ws,
+                 int M, int K, int half, int G, int splits, cudaStream_t stream) {
+  CUtensorMap map_x, map_w;
+  const uint64_t x_dims[4] = {(uint64_t)K, (uint64_t)M}, w_dims[4] = {(uint64_t)K, (uint64_t)half};
+  const uint32_t x_box[4] = {64, NT}, w_box[4] = {WKC, WBN};
+  int err = sa::tensor_map(x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, 2, x_dims, x_box, &map_x);
+  if (err == 0) err = sa::tensor_map(w4, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, 2, w_dims, w_box, &map_w);
+  if (err != 0) return err;
+  const dim3 grid((half + WBN - 1) / WBN, (M + NT - 1) / NT, splits);
+  auto run = [&](auto kernel) {
+    return sa::launch(kernel, grid, dim3(WTHREADS), wgmma_smem_bytes(NT), stream, map_x, map_w,
+                      scale, (bf16*)out, ws, M, half, G, K / G);
+  };
+  err = K / G == WKC ? run(int4_wgmma_kernel<NT, true>) : run(int4_wgmma_kernel<NT, false>);
+  if (err != 0 || splits == 1) return err;
+  const size_t n = (size_t)M * 2 * half;
+  int4_reduce_kernel<<<(unsigned)((n / 2 + 255) / 256), 256, 0, stream>>>(ws, (bf16*)out, n,
+                                                                         splits);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- fp32 path
@@ -339,7 +418,7 @@ __global__ void __launch_bounds__(THREADS)
 
 size_t fma_smem_bytes() { return sizeof(float) * ((size_t)BM * LDXF + 2 * (size_t)KC * LDN); }
 
-// the largest staged chunk that divides the group
+// fp32 path: the largest staged chunk that divides the group
 int pick_chunk(int gs) {
   for (int kc : {128, 64, 32, 16})
     if (gs % kc == 0) return kc;
@@ -351,26 +430,27 @@ int pick_chunk(int gs) {
 // x: (M, K) in the compute dtype (0 = float32, 1 = bfloat16), 16-byte aligned;
 // w4: (half, K) uint8, 16-byte aligned; scale: (2*half, G) float32;
 // out: (M, 2*half) in x's dtype. K/G (the group) must be a multiple of 16.
+// bf16 only: `splits` blocks share the groups of one output tile (the wrapper
+// chooses it, counting 64 packed rows and 16, 64 or 128 tokens (the least
+// that holds M, else 128) a tile); with splits > 1, ws is an fp32 workspace of splits * M * 2*half
+// elements.
 extern "C" int sa_matmul_int4(const void* x, const uint8_t* w4, const float* scale, void* out,
-                              int M, int K, int half, int G, int dtype, void* stream) {
-  if (M < 1 || half < 1 || G < 1 || K % G != 0) return (int)cudaErrorInvalidValue;
-  const int gs = K / G;
-  const int kc = pick_chunk(gs);
-  if (kc == 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((half + BN - 1) / BN, (M + BM - 1) / BM);
+                              void* ws, int M, int K, int half, int G, int splits, int dtype,
+                              void* stream) {
+  if (M < 1 || half < 1 || G < 1 || K % G != 0 || (K / G) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1) {
-    auto run = [&](auto kernel) {
-      return sa::launch(kernel, grid, dim3(THREADS), mma_smem_bytes(), s, (const bf16*)x, w4,
-                        scale, (bf16*)out, M, K, half, G, gs);
-    };
-    switch (kc) {
-      case 128: return run(int4_mma_kernel<128>);
-      case 64: return run(int4_mma_kernel<64>);
-      case 32: return run(int4_mma_kernel<32>);
-      default: return run(int4_mma_kernel<16>);
-    }
+    if (splits < 1 || splits > G || (splits > 1 && ws == nullptr))
+      return (int)cudaErrorInvalidValue;
+    if (M <= 16)
+      return launch_wgmma<16>(x, w4, scale, out, (float*)ws, M, K, half, G, splits, s);
+    if (M <= 64)
+      return launch_wgmma<64>(x, w4, scale, out, (float*)ws, M, K, half, G, splits, s);
+    return launch_wgmma<128>(x, w4, scale, out, (float*)ws, M, K, half, G, splits, s);
   }
+  const int gs = K / G;
+  const dim3 grid((half + BN - 1) / BN, (M + BM - 1) / BM);
   return sa::launch(int4_fma_kernel, grid, dim3(THREADS), fma_smem_bytes(), s, (const float*)x,
-                    w4, scale, (float*)out, M, K, half, G, gs, kc);
+                    w4, scale, (float*)out, M, K, half, G, gs, pick_chunk(gs));
 }

@@ -114,14 +114,23 @@ def aligned16(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """The tensor's device address, as the int a `c_void_p` argument takes."""
+    return t.data_ptr()
 
 
-def stream_of(t) -> ctypes.c_void_p:
+def stream_of(t) -> int:
+    """The raw handle of the current CUDA stream of t's device. A wrapper is
+    called thousands of times a separate, so this takes torch's direct
+    accessor where the build has it: building a `torch.cuda.Stream` costs
+    several microseconds."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        index = t.device.index
+        return raw(torch.cuda.current_device() if index is None else index)
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def dtype_code(dtype) -> int:

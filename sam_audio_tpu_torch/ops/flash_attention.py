@@ -11,11 +11,19 @@ Kernel: csrc/flash_attention.cu (CUDA, sm_90a). What bounds it on the H100
 at the main-path shape (a 45 s clip: B=1, S=1125, H=16, D=128, bf16): it
 reads q, k, v and writes out, 4 x 4.6 MB = 18.4 MB (5.5 us at 3.35 TB/s),
 and does 4*S*S*D*H = 10.4 GFLOP (10.5 us at 989 TFLOP/s bf16): bound by
-operations. The design never materialises the (S, S) scores: one block per
-64-query tile streams 64-key tiles of K and V through shared memory and keeps
-its score and accumulator blocks in registers. In bf16 the products run on
-the tensor cores (mma.sync m16n8k16); in fp32 they are FMAs. No TMA or
-wgmma yet.
+operations. The design never materialises the (S, S) scores. In bf16 a block
+is three consumer warpgroups of 64 queries each plus a producer: one lane of
+the producer's warpgroup fetches Q and then 64-key K and V tiles through TMA
+(a tensor map over the (B, S, H, D) layout, 128-byte swizzle, zero fill past
+S) into a three-stage ring guarded by mbarriers, so the next tiles' copies run
+under this tile's products; q . k^T and p . v are wgmma products (p from
+registers, V read as it lies); a warpgroup starts tile j + 1's scores together
+with tile j's p . v and runs the softmax, in base 2 with the scale folded in,
+while they are in flight. 192 queries a block make the long path 96 blocks,
+all resident at once, each pulling K and V through L2 only once per 192
+queries. In fp32 the products are FMAs. A null mask pointer stands for "no
+mask": the wrapper launches nothing but the kernel; a tile's mask bytes are
+read two a lane and shared by ballot.
 
 `flash_attention` takes the plain PyTorch version for CPU tensors and
 launches the kernel for CUDA tensors (raising if it cannot); it counts its
@@ -105,16 +113,19 @@ def flash_attention(q, k, v, key_padding_mask: Optional[torch.Tensor] = None,
         scale = 1.0 / (d ** 0.5)
     code = _build.dtype_code(q.dtype)
     q, k, v = (_build.aligned16(x.contiguous()) for x in (q, k, v))
-    if key_padding_mask is None:
-        mask = torch.ones((b, sk), dtype=torch.uint8, device=q.device)
-    else:
-        mask = key_padding_mask.to(torch.uint8).contiguous()
-    if mask.device != q.device or k.device != q.device:
+    mask = key_padding_mask
+    if mask is not None:
+        # one byte an element either way: the kernel reads the bool tensor as it is
+        if mask.dtype not in (torch.bool, torch.uint8) or mask.shape != (b, sk):
+            raise ValueError("flash_attention: key_padding_mask must be a (B, Sk) bool "
+                             f"tensor, got {mask.dtype} {tuple(mask.shape)}")
+        mask = mask.contiguous()
+    if k.device != q.device or (mask is not None and mask.device != q.device):
         raise ValueError("flash_attention: inputs on different devices")
     out = torch.empty_like(q)
     P = _build.ptr
     err = _load().sa_flash_attention(
-        P(q), P(k), P(v), P(mask), P(out), b, sq, sk, h, d,
+        P(q), P(k), P(v), P(mask) if mask is not None else None, P(out), b, sq, sk, h, d,
         ctypes.c_float(scale), code, _build.stream_of(q))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1

@@ -15,15 +15,26 @@ Kernel: csrc/int4_matmul.cu (CUDA, sm_90a). What bounds it on the H100: at
 the DiT's shapes and 250 tokens (k=1), 2*M*K*N operations (e.g. 2.1 GFLOP for
 (2048, 2048), 2.1 us at 989 TFLOP/s, against 2.1 MB of packed weights, 0.6 us
 at 3.35 TB/s): bound by operations, near the card's ridge. Cross-attention's
-k/v projections at ~14 tokens are the only launches bound by weight bytes. A
-block owns 64 tokens x 64 packed rows and makes both output planes from one
-read of the packed tile; it stages x and the packed bytes in shared memory
-(16-byte cp.async, three chunks in flight), sign-extends the nibbles to bf16
-there, and runs mma.sync m16n8k16 into a per-group fp32 partial that is scaled
-into the accumulator at each group's end. fp32 inputs take an FMA path. The
-kernel is far from its bound (PERF.md): one block walks the whole contraction
-axis. The TPU kernel's `tokens <= 256` VMEM gate and its padding of the tokens
-to 8 are not carried over: masked loads take any token count.
+k/v projections at ~14 tokens are the only launches bound by weight bytes.
+
+Design (bf16): y^T = W . x^T on wgmma. A block owns 64 packed rows x a token
+tile (16 or 64 tokens when they hold M, else 128) x one split of the groups.
+Two consumer warpgroups each make one nibble plane from the same staged bytes:
+a thread sign-extends its own nibbles in registers straight into wgmma's A
+fragment; the x chunk is the swizzled shared-memory B operand; one lane of a
+third warpgroup fetches both through TMA into a five-stage ring guarded by
+mbarriers; each group's fp32 partial is scaled into the fp32 accumulator. `split_plan` spreads the groups of a tile over several blocks so
+that one launch fills the card's 132 SMs (one block each) without a second
+wave: (2048, 2048) at 250 tokens runs 32 tiles x 4 splits, at 14 tokens 16
+tiles x 8 splits. Splits write fp32 partials to a workspace and a second
+kernel adds them in order and rounds once, so the result is the same bits run
+to run (no atomics). A launch of 86 tiles, (5504, 2048) at 250 tokens, stays
+unsplit: two splits would need a second wave. What holds it back (PERF.md): a
+chunk's copies and products take their times one after the other instead of
+overlapping, and at 250 tokens two thirds of a launch are fixed costs (two
+launches, the ring's fill, the workspace). fp32 inputs take an FMA path without splits. The TPU
+kernel's `tokens <= 256` VMEM gate and its padding of the tokens to 8 are not
+carried over: masked copies take any token count.
 
 `matmul_int4` takes the plain PyTorch version for CPU tensors and launches the
 kernel for CUDA tensors (raising ValueError for a shape it cannot take: the
@@ -34,12 +45,39 @@ group must divide `in` and be a multiple of 16); it counts its launches in
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from sam_audio_tpu_torch.ops import _build
 
 _lib = None
+
+ROW_TILE = 64          # packed rows a block of the bf16 kernel owns
+RESIDENT_BLOCKS = 132  # one block of the bf16 kernel an SM, 132 SMs
+
+
+def token_tile(m: int) -> int:
+    """Tokens a block of the bf16 kernel owns: the least of 16, 64, 128 that
+    holds m, else 128."""
+    return 16 if m <= 16 else 64 if m <= 64 else 128
+
+
+@functools.lru_cache(maxsize=None)
+def n_splits(m: int, half: int, n_groups: int) -> int:
+    """How many blocks of the bf16 kernel share the groups of one output tile:
+    the most that keep tiles x splits within one wave of resident blocks."""
+    tiles = -(-half // ROW_TILE) * -(-m // token_tile(m))
+    return max(1, min(n_groups, RESIDENT_BLOCKS // tiles))
+
+
+def split_plan(m: int, half: int, n_groups: int):
+    """The bf16 kernel's split of the contraction axis for m tokens, `half`
+    packed rows and n_groups scale groups: [(first group, end group)] per
+    split. Split s of S takes groups [s*G // S, (s+1)*G // S), so every group
+    lies in exactly one split and no split is empty."""
+    splits = n_splits(m, half, n_groups)
+    return [(s * n_groups // splits, (s + 1) * n_groups // splits) for s in range(splits)]
 
 
 def unpack_int4(w4: torch.Tensor):
@@ -72,7 +110,7 @@ def _load():
     if _lib is None:
         lib = _build.load("int4_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sa_matmul_int4.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.sa_matmul_int4.argtypes = [p] * 5 + [i] * 6 + [p]
         lib.sa_matmul_int4.restype = i
         _lib = lib
     return _lib
@@ -97,16 +135,23 @@ def matmul_int4(x: torch.Tensor, w4: torch.Tensor, w4_scale: torch.Tensor) -> to
             f"{tuple(w4.shape)} {w4.dtype}, w4_scale {tuple(w4_scale.shape)}: the "
             "group (in / G) must divide `in` and be a multiple of 16")
     code = _build.dtype_code(x.dtype)
+    if w4_scale.dtype != torch.float32 or not w4_scale.is_contiguous():
+        raise ValueError("matmul_int4 kernel takes contiguous float32 scales, as "
+                         f"quantize_linear_int4 stores them; got {w4_scale.dtype}")
     xc = _build.aligned16(x.contiguous())
     wc = _build.aligned16(w4.contiguous())
-    sc = w4_scale.float().contiguous()
-    for t in (wc, sc):
+    for t in (wc, w4_scale):
         if t.device != x.device:
             raise ValueError("matmul_int4: inputs on different devices")
     out = torch.empty((m, 2 * half), dtype=x.dtype, device=x.device)
+    # the fp32 path walks all of K in one block
+    splits = n_splits(m, half, n_groups) if x.dtype == torch.bfloat16 else 1
+    ws = (torch.empty((splits, m, 2 * half), dtype=torch.float32, device=x.device)
+          if splits > 1 else None)
     P = _build.ptr
-    err = _load().sa_matmul_int4(P(xc), P(wc), P(sc), P(out), m, k, half, n_groups,
-                                 code, _build.stream_of(xc))
+    err = _load().sa_matmul_int4(P(xc), P(wc), P(w4_scale), P(out),
+                                 P(ws) if ws is not None else None, m, k, half, n_groups,
+                                 splits, code, _build.stream_of(xc))
     _build.check(err, "matmul_int4")
     matmul_int4.launches += 1
     return out

@@ -41,7 +41,7 @@ def _ms(fn):
 
 def _group(name: str) -> str:
     n = name.lower()
-    if ("fused_glue_attention" in n or "flash_attention_kernel" in n or "res_unit" in n
+    if ("fused_glue_attention" in n or "flash_attention" in n or "res_unit" in n
             or "int4_" in n):
         return "port kernels"
     if "gemm" in n or "gemv" in n or "cutlass" in n or "matmul" in n or "xmma" in n:

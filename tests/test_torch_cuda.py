@@ -73,6 +73,36 @@ def test_cuda_flash_attention_launches_kernel(cuda, dtype, tol):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("s", [1024, 1125, 2000])
+def test_cuda_flash_attention_lengths_and_batches(cuda, dtype, tol, b, s):
+    """Sequence lengths on and off the 128-key padding and the 64-row tiles;
+    a padded row everywhere, a fully masked row where the batch has one."""
+    g = torch.Generator(device=cuda).manual_seed(s + b)
+    q, k, v = (torch.randn(b, s, H, D, generator=g, device=cuda).to(dtype) for _ in range(3))
+    mask = torch.ones((b, s), dtype=torch.bool, device=cuda)
+    mask[0, s * 3 // 4:] = False
+    if b > 1:
+        mask[1, :] = False
+        mask[2, ::3] = False   # holes, not only a padded tail
+    out = flash_attention(q, k, v, mask)
+    ref = flash_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if b > 1:   # the fully masked row: the sum of V over round_up(S, 128) keys
+        want = (v[1].float().sum(0) / (-(-s // 128) * 128)).expand(s, H, D)
+        torch.testing.assert_close(out[1].float(), want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_no_mask_equals_all_true(cuda, dtype):
+    q, k, v, _ = _qkv(cuda, 1125, dtype, 6)
+    mask = torch.ones((2, 1125), dtype=torch.bool, device=cuda)
+    assert torch.equal(flash_attention(q, k, v), flash_attention(q, k, v, mask))
+
+
 def _unit(dev, c, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -122,6 +152,51 @@ def test_cuda_matmul_int4_launches_kernel(cuda, dtype, tol, tokens, out, din):
     assert matmul_int4.launches == n + 1 and y.dtype == dtype and y.shape == (tokens, out)
     ref = matmul_int4_plain(x, q["w4"], q["w4_scale"])
     torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
+
+
+# (out, in) of the DiT's quantized linears at full width
+DIT_SHAPES = [(2048, 2048), (5504, 2048), (2048, 5504), (2048, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens", [1, 14, 250, 2000])
+@pytest.mark.parametrize("out,din", DIT_SHAPES, ids=lambda v: str(v))
+def test_cuda_matmul_int4_dit_shapes(cuda, tokens, out, din):
+    """Every split plan the serving path meets (1 to 16 splits, uneven ones
+    over 43 and 6 groups), and two runs giving the same bits."""
+    q = _int4(cuda, out, din, tokens + out)
+    g = torch.Generator(device=cuda).manual_seed(tokens)
+    x = torch.randn(tokens, din, generator=g, device=cuda).to(torch.bfloat16)
+    y = matmul_int4(x, q["w4"], q["w4_scale"])
+    ref = matmul_int4_plain(x, q["w4"], q["w4_scale"])
+    torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(y, matmul_int4(x, q["w4"], q["w4_scale"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,out,din,group", [(250, 256, 512, 64), (40, 200, 768, 128),
+                                                  (9, 72, 96, 32), (300, 136, 2048, 16)],
+                         ids=["group-64", "ragged-out", "group-32", "group-16"])
+def test_cuda_matmul_int4_groups_and_ragged_rows(cuda, tokens, out, din, group):
+    g = torch.Generator(device=cuda).manual_seed(out)
+    q = quantize_linear_int4({"weight": 0.1 * torch.randn(out, din, generator=g, device=cuda)},
+                             group_size=group)
+    assert q["w4_scale"].shape == (out, din // group)
+    x = torch.randn(tokens, din, generator=g, device=cuda).to(torch.bfloat16)
+    y = matmul_int4(x, q["w4"], q["w4_scale"])
+    ref = matmul_int4_plain(x, q["w4"], q["w4_scale"])
+    torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    assert torch.equal(y, matmul_int4(x, q["w4"], q["w4_scale"]))
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_int4_refuses_other_scales(cuda):
+    q = _int4(cuda, 64, 256, 1)
+    x = torch.randn(4, 256, device=cuda)
+    with pytest.raises(ValueError):
+        matmul_int4(x, q["w4"], q["w4_scale"].double())
+    with pytest.raises(ValueError):
+        matmul_int4(x, q["w4"], q["w4_scale"].t().contiguous().t())
 
 
 @pytest.mark.cuda

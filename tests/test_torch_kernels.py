@@ -91,6 +91,15 @@ def test_flash_attention_plain_matches_pallas_interpret(jdt, tdt, tol):
                                rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("tdt", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_attention_no_mask_equals_all_true_mask(tdt):
+    q, k, v, _ = _qkv(4, t=150)
+    q, k, v = (_to_torch(x, tdt) for x in (q, k, v))
+    out = flash_attention(q, k, v, key_padding_mask=None)
+    ref = flash_attention(q, k, v, key_padding_mask=torch.ones(B, 150, dtype=torch.bool))
+    assert torch.equal(out, ref)
+
+
 def _unit_params(c, seed):
     import jax
 

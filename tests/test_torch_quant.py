@@ -22,7 +22,14 @@ from sam_audio_tpu_torch import SAMAudio, SAMAudioProcessor, tiny_test_config
 from sam_audio_tpu_torch.checkpoint import cast_matmul_weights, params_from_numpy
 from sam_audio_tpu_torch.ops import nn as N
 from sam_audio_tpu_torch.ops import quant as TQ
-from sam_audio_tpu_torch.ops.int4_matmul import matmul_int4, matmul_int4_plain
+from sam_audio_tpu_torch.ops.int4_matmul import (
+    RESIDENT_BLOCKS,
+    ROW_TILE,
+    token_tile,
+    matmul_int4,
+    matmul_int4_plain,
+    split_plan,
+)
 from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -84,6 +91,43 @@ def test_matmul_int4_plain_matches_pallas_and_xla_paths(out_in, tokens):
     np.testing.assert_array_equal(matmul_int4(torch.tensor(x), torch.tensor(q["w4"]),
                                               torch.tensor(q["w4_scale"])).numpy(), got)
     assert matmul_int4.launches == n
+
+
+@pytest.mark.parametrize("tokens", [1, 14, 250, 2000])
+@pytest.mark.parametrize("groups", [1, 6, 16, 43])
+def test_split_plan_covers_every_group_once(groups, tokens):
+    for half in (1024, 2752, 100):
+        plan = split_plan(tokens, half, groups)
+        assert 1 <= len(plan) <= groups
+        covered = [g for first, end in plan for g in range(first, end)]
+        assert covered == list(range(groups))          # each group once, in order
+        assert all(end > first for first, end in plan)  # no empty split
+        tiles = -(-half // ROW_TILE) * -(-tokens // token_tile(tokens))
+        assert len(plan) == 1 or tiles * len(plan) <= RESIDENT_BLOCKS
+    # the serving shapes at 250 tokens fill most of one wave
+    if tokens == 250 and groups >= 6:
+        assert len(split_plan(tokens, 1024, groups)) == 4
+
+
+@pytest.mark.parametrize("groups,tokens", [(6, 14), (16, 250), (43, 5)])
+def test_split_wise_plain_sum_equals_plain(groups, tokens):
+    """What the split kernel computes: the plain version over each split's
+    groups, added in fp32 in split order, equals the plain version."""
+    rng = np.random.RandomState(groups)
+    din = groups * 128
+    q = TQ.quantize_linear_int4({"weight": torch.tensor(
+        rng.randn(64, din).astype(np.float32) * 0.1)})
+    x = torch.tensor(rng.randn(tokens, din).astype(np.float32) * 0.1)   # |y| < 1
+    total = torch.zeros(tokens, 64)
+    plan = split_plan(tokens, 2048, groups)[:groups]
+    if len(plan) == 1:   # a plan of one split proves nothing: cut it in three
+        plan = [(s * groups // 3, (s + 1) * groups // 3) for s in range(3)]
+    for first, end in plan:
+        cols = slice(first * 128, end * 128)
+        total = total + matmul_int4_plain(x[:, cols], q["w4"][:, cols],
+                                          q["w4_scale"][:, first:end])
+    ref = matmul_int4_plain(x, q["w4"], q["w4_scale"])
+    np.testing.assert_allclose(total.numpy(), ref.numpy(), rtol=1e-6, atol=1e-6)
 
 
 def test_linear_dispatches_on_quantized_keys():
