@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (sam_audio_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels 2,4    (phases 1-3 for the listed kernels, then stop)
+    python3 chip_smoke.py --kernels 1,3    (phases 1-3 for the listed kernels, then stop)
 
 Phases (any failure exits non-zero):
   1. device  — require CUDA; print the card's name and power limit; TF32 off.
@@ -49,6 +49,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
+PEAK_FP32 = 67e12       # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BPS = 3.35e12       # H100 SXM HBM3 bytes/s
 DEVICE = "cuda"
 MIXTURE_SECONDS = 10.0
@@ -60,9 +61,10 @@ def log(*args):
     print(*args, flush=True)
 
 
-def bound_ms(flops: float, nbytes: float):
-    """The least time for bf16 work of `flops` operations moving `nbytes`."""
-    t_ops = flops / PEAK_BF16
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16):
+    """The least time for work of `flops` operations (at `peak` FLOP/s, bf16
+    tensor cores by default) moving `nbytes`."""
+    t_ops = flops / peak
     t_bytes = nbytes / HBM_BPS
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -183,6 +185,11 @@ def check_fused_attention(results):
     # main-path shape: B=1, T=250, H=16, D=128, bf16, no masked keys
     q, k, v, mask = _attn_inputs(1, 250, h, d, torch.bfloat16, seed=1,
                                  masked_rows=False)
+    first = fused_glue_attention(q, k, v, qw, kw, cos, sin, mask)
+    require(torch.equal(first, fused_glue_attention(q, k, v, qw, kw, cos, sin, mask)),
+            "fused_glue_attention: two runs on one input differ")
+    require(torch.equal(first, fused_glue_attention(q, k, v, qw, kw, cos, sin)),
+            "fused_glue_attention: no mask and an all-true mask differ")
     ms = time_ms(lambda: fused_glue_attention(q, k, v, qw, kw, cos, sin, mask))
     plain = time_ms(lambda: fused_glue_attention_plain(q, k, v, qw, kw, cos, sin, mask))
     qn = _norm_rope(q, qw, cos, sin, 1e-5).transpose(1, 2)
@@ -197,6 +204,24 @@ def check_fused_attention(results):
     bms, by = bound_ms(flops, nbytes)
     log(f"  main shape (1, 250, 16, 128) bf16: kernel {ms:.4f} ms (device {dev:.4f}), plain "
         f"{plain:.4f} ms, SDPA {lib:.4f} ms (device {lib_dev:.4f}), bound {bms:.5f} ms ({by})")
+    # the k=8 rerank's shape (B=8, bf16) and the int4/int8 modes' fp32 path
+    extra = {}
+    for what, b, dtype, elem, peak in (("bf16 B=8", 8, torch.bfloat16, 2, PEAK_BF16),
+                                       ("fp32 B=1", 1, torch.float32, 4, PEAK_FP32)):
+        q, k, v, mask = _attn_inputs(b, t, h, d, dtype, seed=2, masked_rows=False)
+        xms = time_ms(lambda: fused_glue_attention(q, k, v, qw, kw, cos, sin, mask))
+        xdev = device_ms(lambda: fused_glue_attention(q, k, v, qw, kw, cos, sin, mask))
+        qn = _norm_rope(q, qw, cos, sin, 1e-5).transpose(1, 2)
+        kn = _norm_rope(k, kw, cos, sin, 1e-5).transpose(1, 2)
+        vt = v.transpose(1, 2)
+        xlib = device_ms(lambda: F.scaled_dot_product_attention(qn, kn, vt))
+        xb, xby = bound_ms(b * flops, b * 4 * t * h * d * elem + 2 * d * 4 + t * d * 4 + b * t,
+                           peak)
+        extra[what] = dict(ms=xms, device_ms=xdev, library_device_ms=xlib, bound_ms=xb,
+                           bound_by=xby)
+        log(f"  ({b}, 250, 16, 128) {dtype}: kernel {xms:.4f} ms (device {xdev:.4f}), SDPA "
+            f"device {xlib:.4f} ms, bound {xb:.5f} ms ({xby})")
+    results["extra"] = extra
     results.update(name="fused_glue_attention",
                    per_launch=(ms, plain, lib, bms, by, dev, lib_dev),
                    max_abs_err=max(errs), tolerance="bf16 atol 2e-2 + rtol 2e-2; "
@@ -299,6 +324,8 @@ def check_fused_conv(results):
             ref = fused_residual_unit_plain(*residual_unit_operands(p, x, torch.bfloat16), dil)
             torch.cuda.synchronize()
             errs.append(check_close(f"bf16 C={c} T={t} dil={dil}", out, ref, 5e-2, 2e-2))
+            require(torch.equal(out, fused_residual_unit(p, x, dil, torch.bfloat16)),
+                    "fused_residual_unit: two runs on one input differ")
             reps = 2 if c * t > 3e7 else 5
             ms = time_ms(lambda: fused_residual_unit(p, x, dil, torch.bfloat16), iters=reps)
             ops = residual_unit_operands(p, x, torch.bfloat16)
@@ -682,8 +709,16 @@ def main() -> int:
         # a short run for work on a kernel: no model, no result line
         for number in sys.argv[2].split(","):
             checks[number]()
-        log(json.dumps({"matmul_int4_shapes": k4.get("per_shape"),
-                        "flash_attention": k2.get("per_launch")}))
+        record = {"fused_glue_attention": k1.get("per_launch"),
+                  "fused_glue_attention_extra": k1.get("extra"),
+                  "flash_attention": k2.get("per_launch"),
+                  "fused_residual_unit_shapes": k3.get("per_shape"),
+                  "fused_residual_unit_totals": k3.get("totals"),
+                  "matmul_int4_shapes": k4.get("per_shape"), "power": smi}
+        os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+        with open(os.path.join(HERE, "build", "chip_smoke_kernels.json"), "w") as f:
+            json.dump(record, f, indent=1)
+        log(json.dumps({k: v for k, v in record.items() if "shapes" not in k}))
         log(smi)
         return 0
     for check in checks.values():
@@ -745,7 +780,8 @@ def main() -> int:
     def entry(res, source, replaces, launches, ms, plain, lib, bms, by, dev, lib_dev):
         # "tpu_source", "max_err" and "kernel_ms" repeat "replaces",
         # "max_abs_err" and "ms" under a second set of names that readers use
-        return {"name": res["name"], "route": "cuda", "source": source,
+        extra = {"per_launch_at": res["extra"]} if "extra" in res else {}
+        return {**extra, "name": res["name"], "route": "cuda", "source": source,
                 "replaces": replaces, "tpu_source": replaces, "launches": launches,
                 "max_abs_err": res["max_abs_err"], "max_err": res["max_abs_err"],
                 "max_abs_err_fp32": res["fp32_err"], "tolerance": res["tolerance"],

@@ -33,55 +33,21 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// ---- tensor-core helpers (mma.sync m16n8k16, bf16 in, fp32 accumulate) ----
-// Fragment layouts, with g = lane / 4 and q = lane % 4:
-//   A (16x16, row-major): a0 (row g, k 2q..2q+1), a1 (row g+8, same k),
-//                         a2 (row g, k 2q+8..), a3 (row g+8, k 2q+8..)
-//   B (16x8, k-major):    b0 (k 2q..2q+1, col g), b1 (k 2q+8.., col g)
-//   C/D (16x8, fp32):     d0, d1 (row g, cols 2q, 2q+1), d2, d3 (row g+8)
-// A 32-bit register holds two bf16, the lower index in the low half.
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
+// Two floats rounded to bf16 and packed, the lower index in the low half.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// B fragment (b0, b1) of a 16(k) x 8(n) tile stored row-major by k in shared
-// memory (n contiguous): row_ptr is this lane's row, k = lane % 16, of the
-// tile; ldmatrix .trans hands each lane its (k 2q..2q+1, n g) pairs.
-__device__ __forceinline__ void ldmatrix_b_trans(uint32_t (&b)[2],
-                                                 const __nv_bfloat16* row_ptr) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row_ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b[0]), "=r"(b[1])
-               : "r"(addr));
-}
-
-// Rows r0 .. r0+rows-1 of a (rows, D) bf16 matrix with the given row stride
-// into shared memory (row stride LD), 16 bytes per load; rows at or past
-// `limit` become zeros. Rows in device memory must start 16-byte aligned.
-template <int D, int LD, int NTHREADS>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          size_t row_stride, int r0, int rows, int limit) {
-  for (int e = threadIdx.x; e < rows * D / 8; e += NTHREADS) {
-    const int r = e / (D / 8), c8 = (e % (D / 8)) * 8, t = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < limit) val = *reinterpret_cast<const uint4*>(src + (size_t)t * row_stride + c8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c8) = val;
-  }
+// The current device's SM count (read once).
+inline int num_sms() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 132;
+  }();
+  return n;
 }
 
 // Sets the dynamic shared-memory limit, launches, and reports the first error.

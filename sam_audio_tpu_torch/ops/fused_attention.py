@@ -12,15 +12,18 @@ with v, T treated as padded to a multiple of 128 with masked zero keys.
 
 Kernel: csrc/fused_attention.cu (CUDA, sm_90a). What bounds it on the H100
 at the main-path shape (B=1, T=250 -> 256, H=16, D=128, bf16): it reads q, k,
-v and writes out, 4 x 1 MB = 4.2 MB (1.3 us at 3.35 TB/s), and does
-4*T*T*D*H = 0.54 GFLOP (0.54 us at 989 TFLOP/s bf16): below the card's
-ridge, so a well-fed kernel is bound by bytes and launch latency. The design
-keeps the scores and the normalised q'/k' on chip (one block per query tile,
-K and V streamed in 64-key tiles), so nothing but q, k, v and out touches
-device memory. In bf16 the products run on the tensor cores (mma.sync, two
-passes over the keys: row statistics, then the normalised p rounded to bf16
-into P . V, scores in registers); in fp32 they are FMAs with the scores in
-shared memory. No TMA or wgmma yet.
+v and writes out, 4 x 1 MB = 4.1 MB (1.2 us at 3.35 TB/s), and does
+4*T*T*D*H = 0.52 GFLOP (0.5 us at 989 TFLOP/s bf16): below the card's ridge,
+so a well-fed kernel is bound by bytes and latency. In bf16 a block of four
+warpgroups owns 64 queries of one (batch, head); each warpgroup fetches a
+quarter of the keys by TMA, normalises and rotates them once, computes its
+scores once with wgmma and keeps them in registers; the warpgroups trade
+their rows' max and sum once, so p is normalised before it is rounded to bf16
+for p . v (wgmma, p as the register operand), and the four partial outputs
+are summed in shared memory. In fp32 the products are FMAs with the scores in
+shared memory. With no mask the kernel gets a null mask pointer; norm weights
+and rope tables that are already float32 and contiguous are passed as they
+are.
 
 `fused_glue_attention` takes the plain PyTorch version for CPU tensors and
 launches the kernel for CUDA tensors (raising if it cannot); it counts its
@@ -79,6 +82,51 @@ def fused_glue_attention_plain(q, k, v, q_norm_w, k_norm_w, cos, sin,
     return out.to(v.dtype)
 
 
+def fused_glue_attention_split_keys(q, k, v, q_norm_w, k_norm_w, cos, sin,
+                                    key_padding_mask: Optional[torch.Tensor] = None,
+                                    eps: float = 1e-5, groups: int = 4) -> torch.Tensor:
+    """The bf16 kernel's softmax in plain PyTorch: the padded keys split into
+    `groups` equal ranges; each range's row max m_g and sum l_g of
+    exp(s - m_g); one exchange gives the row's max m and sum l =
+    sum_g l_g exp(m_g - m); p = exp(s - m_g) * exp(m_g - m) / l, normalised
+    before it is rounded. Same arguments and result as
+    `fused_glue_attention_plain`, which it equals up to float rounding."""
+    b, t, h, d = q.shape
+    t_pad = -(-t // 128) * 128
+    if key_padding_mask is None:
+        key_padding_mask = torch.ones((b, t), dtype=torch.bool, device=q.device)
+    qn = _norm_rope(q, q_norm_w, cos, sin, eps).float()
+    kn = F.pad(_norm_rope(k, k_norm_w, cos, sin, eps), (0, 0, 0, 0, 0, t_pad - t)).float()
+    vp = F.pad(v, (0, 0, 0, 0, 0, t_pad - t)).float()
+    mask = F.pad(key_padding_mask.bool(), (0, t_pad - t))
+    s = torch.einsum("bqhd,bkhd->bhqk", qn, kn) / (d ** 0.5)
+    s = torch.where(mask[:, None, None, :], s, torch.tensor(NEG, device=q.device))
+    parts = s.reshape(b, h, t, groups, t_pad // groups)
+    m_g = parts.amax(-1, keepdim=True)
+    e = torch.exp(parts - m_g)
+    l_g = e.sum(-1, keepdim=True)
+    m = m_g.amax(-2, keepdim=True)
+    l = (l_g * torch.exp(m_g - m)).sum(-2, keepdim=True)
+    p = (e * (torch.exp(m_g - m) / l)).reshape(b, h, t, t_pad)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), vp)
+    return out.to(v.dtype)
+
+
+def _f32(x):
+    """x as a contiguous float32 tensor: x itself when it already is one (the
+    model's norm weights and rope tables), so a launch makes no copies."""
+    if x.dtype == torch.float32 and x.is_contiguous():
+        return x
+    return x.float().contiguous()
+
+
+def _bytes(mask):
+    """A (B, T) mask as contiguous bytes (nonzero = attend); a bool mask is
+    viewed as bytes, not copied."""
+    mask = mask.contiguous()
+    return mask.view(torch.uint8) if mask.dtype == torch.bool else mask.to(torch.uint8)
+
+
 def _load():
     global _lib
     if _lib is None:
@@ -108,21 +156,18 @@ def fused_glue_attention(q, k, v, q_norm_w, k_norm_w, cos, sin,
         raise ValueError("fused_glue_attention: q, k, v must share shape and dtype")
     code = _build.dtype_code(q.dtype)
     q, k, v = (_build.aligned16(x.contiguous()) for x in (q, k, v))
-    qw = q_norm_w.float().contiguous()
-    kw = k_norm_w.float().contiguous()
-    cs = _build.aligned16(cos[:t].float().contiguous())
-    sn = _build.aligned16(sin[:t].float().contiguous())
-    if key_padding_mask is None:
-        mask = torch.ones((b, t), dtype=torch.uint8, device=q.device)
-    else:
-        mask = key_padding_mask.to(torch.uint8).contiguous()
-    for x in (qw, kw, cs, sn, mask):
+    qw, kw = _f32(q_norm_w), _f32(k_norm_w)
+    cs = _build.aligned16(_f32(cos[:t]))
+    sn = _build.aligned16(_f32(sin[:t]))
+    mask = None if key_padding_mask is None else _bytes(key_padding_mask)
+    for x in (qw, kw, cs, sn) + (() if mask is None else (mask,)):
         if x.device != q.device:
             raise ValueError("fused_glue_attention: inputs on different devices")
     out = torch.empty_like(q)
     P = _build.ptr
     err = _load().sa_fused_glue_attention(
-        P(q), P(k), P(v), P(qw), P(kw), P(cs), P(sn), P(mask), P(out),
+        P(q), P(k), P(v), P(qw), P(kw), P(cs), P(sn), None if mask is None else P(mask),
+        P(out),
         b, t, h, d, ctypes.c_float(eps), ctypes.c_float(1.0 / (d ** 0.5)), code,
         _build.stream_of(q))
     _build.check(err, "fused_glue_attention")

@@ -62,6 +62,51 @@ def test_cuda_fused_glue_attention_launches_kernel(cuda, dtype, tol):
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
+def _glue_inputs(dev, b, t, dtype):
+    """q, k, v, norm weights, rope tables and a mask: row 0 padded, and where
+    the batch has them row 1 fully masked and row 2 with holes."""
+    g = torch.Generator(device=dev).manual_seed(t + b)
+    q, k, v = (torch.randn(b, t, H, D, generator=g, device=dev).to(dtype) for _ in range(3))
+    qw, kw = (1 + 0.1 * torch.randn(D, generator=g, device=dev) for _ in range(2))
+    cos, sin = precompute_rope(D, t, 20000, device=dev)
+    mask = torch.ones((b, t), dtype=torch.bool, device=dev)
+    mask[0, max(1, t * 3 // 4):] = False
+    if b > 1:
+        mask[1, :] = False
+    if b > 2:
+        mask[2, ::3] = False
+    return q, k, v, qw, kw, cos, sin, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("t", [1, 63, 64, 200, 250, 256, 257, 511, 512])
+def test_cuda_fused_glue_attention_lengths_and_batches(cuda, dtype, tol, b, t):
+    """Lengths on and off the 64-row query tiles and the 128-key padding (one
+    to four key blocks a warpgroup); a fully masked row is the sum of V over
+    round_up(T, 128) keys."""
+    args = _glue_inputs(cuda, b, t, dtype)
+    q, k, v, qw, kw, cos, sin, mask = args
+    out = fused_glue_attention(*args)
+    ref = fused_glue_attention_plain(*args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+    if b > 1:
+        want = (v[1].float().sum(0) / (-(-t // 128) * 128)).expand(t, H, D)
+        torch.testing.assert_close(out[1].float(), want, rtol=tol, atol=tol)
+    assert torch.equal(out, fused_glue_attention(*args)), "two runs differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [250, 512])
+def test_cuda_fused_glue_attention_no_mask_equals_all_true(cuda, dtype, t):
+    q, k, v, qw, kw, cos, sin, _ = _glue_inputs(cuda, 2, t, dtype)
+    mask = torch.ones((2, t), dtype=torch.bool, device=cuda)
+    assert torch.equal(fused_glue_attention(q, k, v, qw, kw, cos, sin),
+                       fused_glue_attention(q, k, v, qw, kw, cos, sin, mask))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_cuda_flash_attention_launches_kernel(cuda, dtype, tol):
@@ -126,6 +171,47 @@ def test_cuda_residual_unit_launches_kernel(cuda, dtype, tol):
         assert fused_residual_unit.launches == n + 1
         ref = fused_residual_unit_plain(*residual_unit_operands(p, x, dtype), dilation)
         torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+@pytest.mark.parametrize("c", [64, 96, 128, 192, 256, 384, 512, 768])
+def test_cuda_residual_unit_widths_bf16(cuda, c, dilation, b):
+    """Every width of the codec, fused (C <= 128) and split over output-channel
+    chunks, at a ragged T; two runs give the same bits."""
+    p = _unit(cuda, c, c + dilation)
+    x = torch.randn(b, c, 3001, generator=torch.Generator(device=cuda).manual_seed(c),
+                    device=cuda).to(torch.bfloat16)
+    out = fused_residual_unit(p, x, dilation, torch.bfloat16)
+    ref = fused_residual_unit_plain(*residual_unit_operands(p, x, torch.bfloat16), dilation)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=5e-2, atol=5e-2)
+    assert torch.equal(out, fused_residual_unit(p, x, dilation, torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+@pytest.mark.parametrize("c", [64, 192, 512])
+def test_cuda_residual_unit_widths_fp32(cuda, c, dilation):
+    p = _unit(cuda, c, c + dilation)
+    x = torch.randn(2, c, 3001, generator=torch.Generator(device=cuda).manual_seed(c),
+                    device=cuda)
+    out = fused_residual_unit(p, x, dilation, torch.float32)
+    ref = fused_residual_unit_plain(*residual_unit_operands(p, x, torch.float32), dilation)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize("c", [64, 256])
+def test_cuda_residual_unit_shorter_than_halo(cuda, dtype, tol, c):
+    """T = 20 at dilation 9: every tap of every row reaches the zero padding
+    on one side or the other."""
+    p = _unit(cuda, c, 3)
+    x = torch.randn(2, c, 20, device=cuda)
+    out = fused_residual_unit(p, x, 9, dtype)
+    ref = fused_residual_unit_plain(*residual_unit_operands(p, x, dtype), 9)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 
 @pytest.mark.cuda

@@ -28,8 +28,16 @@ from sam_audio_tpu_torch.ops.flash_attention import flash_attention, flash_atten
 from sam_audio_tpu_torch.ops.fused_attention import (
     fused_glue_attention,
     fused_glue_attention_plain,
+    fused_glue_attention_split_keys,
 )
-from sam_audio_tpu_torch.ops.fused_conv import fused_residual_unit
+from sam_audio_tpu_torch.ops.fused_conv import (
+    bf16_chunk,
+    conv1_chunk,
+    fused_residual_unit,
+    prepared_operands,
+    residual_unit_operands,
+    tile_weights,
+)
 from sam_audio_tpu_torch.ops.rope import precompute_rope
 
 B, T, H, D = 2, 200, 2, 128   # T not a multiple of 128; B*H = 4
@@ -152,3 +160,84 @@ def test_cpu_calls_do_not_count_launches():
     before = (fused_glue_attention.launches, flash_attention.launches)
     flash_attention(torch.tensor(q), torch.tensor(k), torch.tensor(v))
     assert (fused_glue_attention.launches, flash_attention.launches) == before
+
+
+@pytest.mark.parametrize("t", [1, 63, 200, 257, 512])
+def test_split_key_softmax_matches_plain(t):
+    """The bf16 kernel's one-pass softmax (per-warpgroup max and sum, one
+    exchange) computes the plain version's function: fp32 within 1e-6, with
+    a padded row, a fully masked row and a row with holes."""
+    q, k, v, mask = _qkv(5, t=t, b=3)
+    mask[2, ::3] = False
+    rng = np.random.RandomState(6)
+    qw, kw = (torch.tensor((1 + 0.1 * rng.randn(D)).astype(np.float32)) for _ in range(2))
+    cos, sin = precompute_rope(D, t, 20000)
+    args = [torch.tensor(x) for x in (q, k, v)] + [qw, kw, cos, sin, torch.tensor(mask)]
+    ref = fused_glue_attention_plain(*args)
+    out = fused_glue_attention_split_keys(*args)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("c,nc,nc1", [(32, 32, 32), (64, 64, 64), (96, 96, 96),
+                                      (128, 128, 128), (192, 192, 96), (256, 256, 128),
+                                      (384, 128, 128), (512, 128, 128), (768, 128, 128),
+                                      (160, 32, 32), (224, 32, 32), (40, 0, 0), (16, 0, 0)])
+def test_bf16_chunk_plan(c, nc, nc1):
+    """One fused kernel (chunk = C) for the widths it has products for, its
+    1x1 in two passes above 128; other units split into k7 and 1x1 kernels
+    over output-channel chunks that divide C."""
+    assert bf16_chunk(c) == nc
+    assert conv1_chunk(c) == nc1
+
+
+def _unswizzle(tiles, nc):
+    pieces = tiles.reshape(-1, nc, 8, 8)
+    src = torch.arange(8)[None, :] ^ (torch.arange(nc) % 8)[:, None]
+    return torch.gather(pieces, 2, src[None, :, :, None].expand_as(pieces)).reshape(-1, nc, 64)
+
+
+@pytest.mark.parametrize("c", [32, 96, 192, 256, 384])
+def test_tile_weights_order_and_swizzle(c):
+    """Slice ((n * nci + kc) * 7 + j) is tap j, output channels of k7 chunk n,
+    input channels 64 kc .. 64 kc + 63 (zero past C); the 1x1 slices follow by
+    1x1 chunks; piece p of row r is stored at p ^ (r % 8)."""
+    g = torch.Generator().manual_seed(c)
+    w7, w1 = torch.randn(7, c, c, generator=g), torch.randn(c, c, generator=g)
+    nc, nc1 = bf16_chunk(c), conv1_chunk(c)
+    nci = -(-c // 64)
+    tiles = tile_weights(w7, w1, nc, nc1)
+    n7 = (c // nc) * nci * 7
+    assert tiles.dtype == torch.bfloat16
+    assert tiles.numel() == n7 * nc * 64 + (c // nc1) * nci * nc1 * 64
+    part7 = _unswizzle(tiles[:n7 * nc * 64], nc).float()
+    part1 = _unswizzle(tiles[n7 * nc * 64:], nc1).float()
+    pad7 = torch.nn.functional.pad(w7, (0, nci * 64 - c)).bfloat16().float()
+    pad1 = torch.nn.functional.pad(w1, (0, nci * 64 - c)).bfloat16().float()
+    for kc in range(nci):
+        cols = slice(64 * kc, 64 * kc + 64)
+        for n in range(c // nc):
+            for j in range(7):
+                assert torch.equal(part7[(n * nci + kc) * 7 + j],
+                                   pad7[j, n * nc:(n + 1) * nc, cols])
+        for n in range(c // nc1):
+            assert torch.equal(part1[n * nci + kc], pad1[n * nc1:(n + 1) * nc1, cols])
+
+
+def test_prepared_operands_made_once_per_unit():
+    """The card's operands are built once per unit and dtype (no weight copy
+    a launch), and again when a weight changes in place."""
+    p = params_from_numpy(_unit_params(64, 3))
+    a = prepared_operands(p, torch.bfloat16)
+    assert prepared_operands(p, torch.bfloat16) is a
+    _, w7, b7, w1, b1, a1, a2 = residual_unit_operands(p, torch.zeros(1, 64, 1),
+                                                       torch.bfloat16)
+    assert torch.equal(a[0], tile_weights(w7, w1, 64, 64))
+    pairs = [torch.stack([al, 1.0 / (al + 1e-9)], -1) for al in (a1, a2)]
+    for got, want in zip(a[1:], [b7, b1] + pairs):
+        assert torch.equal(got, want)
+    assert prepared_operands(p, torch.float32) is not a
+    p["conv2"]["weight"].mul_(2)
+    b = prepared_operands(p, torch.bfloat16)
+    assert b is not a
+    p["conv1"]["bias"].add_(1)
+    assert prepared_operands(p, torch.bfloat16) is not b
