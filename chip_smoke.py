@@ -17,8 +17,10 @@ Phases (any failure exits non-zero):
                kernel and the library call also with the host out of the
                window (`device_ms`: a CUDA graph of the calls, replayed).
   4. small   — a small model in fp32 through separate() on the card (the
-               kernels) and on the CPU (the plain versions): must agree; then
-               the same after quantize(bits=4).
+               kernels) and on the CPU (the plain versions): must agree;
+               then a clip past max_direct_seconds streamed through 3
+               windows, with the same window noise on both; then the same
+               after quantize(bits=4).
   5. main    — the default SAMAudioConfig (sam-audio-large widths), random
                weights from a seed, bf16, a 10 s 48 kHz mixture with a text
                prompt, separate(k=1): one counted run, then timed runs.
@@ -28,10 +30,24 @@ Phases (any failure exits non-zero):
                ranker of random weights scoring on the card; the winner must
                be the argmax of the host scoring path on the same decoded
                candidates. Then once with preview_nfe=8.
-  8. int4    — quantize(bits=4), separate(k=1) on the 10 s clip (every DiT
+  8. stream  — a 60 s clip with a text prompt and two anchors past
+               max_direct_seconds=10: separate() streams it through 7 windows
+               of 10 s, one window a call (streaming_batch_windows=1), then
+               four (groups of 4 and 3); the two targets must agree.
+  9. judge   — a SAMAudioJudgeModel of the default config (ModernBERT-base,
+               two PE-AV towers of 24 x 1024, the DAC-VAE encoder), random
+               weights, bf16, as the text ranker of separate(k=8) on the
+               10 s clip: its device scores held against its host path on
+               the same candidates, the winner the host path's argmax where
+               the host scores decide one (check_ranking); an ensemble
+               (judge + sound activity) through the host path, whose scores
+               must be the weighted sum of its members'; the int8 judge on
+               the same candidates; the same weights in fp32 (host and
+               device within 1e-5).
+ 10. int4    — quantize(bits=4), separate(k=1) on the 10 s clip (every DiT
                linear through the int4 kernel), held against the exact bf16
                model with the same noise (correlation and SNR).
-  9. int8    — the same probe after quantize(bits=8) of a fresh model.
+ 11. int8    — the same probe after quantize(bits=8) of a fresh model.
 Each path is driven with the launch counts set to 0 just before it and read
 just after; each must launch exactly the kernels its shapes select.
 The second-to-last line is the `{"kernels": [...]}` record, the last line
@@ -54,6 +70,8 @@ HBM_BPS = 3.35e12       # H100 SXM HBM3 bytes/s
 DEVICE = "cuda"
 MIXTURE_SECONDS = 10.0
 LONG_SECONDS = 45.0
+STREAM_SECONDS = 60.0
+STREAM_WINDOW_SECONDS = 10.0
 TIMED_RUNS = 3
 
 
@@ -204,9 +222,17 @@ def check_fused_attention(results):
     bms, by = bound_ms(flops, nbytes)
     log(f"  main shape (1, 250, 16, 128) bf16: kernel {ms:.4f} ms (device {dev:.4f}), plain "
         f"{plain:.4f} ms, SDPA {lib:.4f} ms (device {lib_dev:.4f}), bound {bms:.5f} ms ({by})")
-    # the k=8 rerank's shape (B=8, bf16) and the int4/int8 modes' fp32 path
+    # streaming at streaming_batch_windows=4: four full 10 s windows a launch
+    q, k, v, mask = _attn_inputs(4, 250, h, d, torch.bfloat16, seed=4, masked_rows=False)
+    errs.append(check_close("bf16 B=4 T=250 (streaming, 4 windows a call)",
+                            fused_glue_attention(q, k, v, qw, kw, cos, sin, mask),
+                            fused_glue_attention_plain(q, k, v, qw, kw, cos, sin, mask),
+                            2e-2, 2e-2))
+    # the k=8 rerank's shape (B=8, bf16), streaming's B=4 and the int4/int8
+    # modes' fp32 path
     extra = {}
     for what, b, dtype, elem, peak in (("bf16 B=8", 8, torch.bfloat16, 2, PEAK_BF16),
+                                       ("bf16 B=4", 4, torch.bfloat16, 2, PEAK_BF16),
                                        ("fp32 B=1", 1, torch.float32, 4, PEAK_FP32)):
         q, k, v, mask = _attn_inputs(b, t, h, d, dtype, seed=2, masked_rows=False)
         xms = time_ms(lambda: fused_glue_attention(q, k, v, qw, kw, cos, sin, mask))
@@ -346,6 +372,34 @@ def check_fused_conv(results):
                                   library_ms=lib, library_device_ms=lib_dev, bound_ms=bms))
             log(f"    kernel {ms:.3f} ms (device {dev:.3f}), plain {plain:.3f} ms, conv1d chain "
                 f"{lib:.3f} ms (device {lib_dev:.3f}), bound {bms:.4f} ms")
+    # the judge's codec encoder on k=8 candidates: the encoder's shapes at B=8
+    judge = {"ms": 0.0, "dev": 0.0, "lib_dev": 0.0, "bound": 0.0, "flops": 0.0, "bytes": 0.0}
+    for c, t in ENCODER_SHAPES:
+        x = torch.randn(8, c, t, generator=g, device=DEVICE).to(torch.bfloat16)
+        for dil in (1, 3, 9):
+            p = unit(c, seed=c + dil)
+            out = fused_residual_unit(p, x, dil, torch.bfloat16)
+            ref = fused_residual_unit_plain(*residual_unit_operands(p, x, torch.bfloat16), dil)
+            torch.cuda.synchronize()
+            errs.append(check_close(f"bf16 B=8 C={c} T={t} dil={dil} (judge encoder, k=8)",
+                                    out, ref, 5e-2, 2e-2))
+            del out, ref
+            ms = time_ms(lambda: fused_residual_unit(p, x, dil, torch.bfloat16), iters=2)
+            dev = device_ms(lambda: fused_residual_unit(p, x, dil, torch.bfloat16), iters=2)
+            lib_dev = device_ms(lambda: library_chain(p, x, dil), iters=2)
+            flops = 8 * 2 * 8 * c * c * t
+            nbytes = 8 * 2 * c * t * 2 + 8 * c * c * 2 + 4 * c * 4
+            bms, _ = bound_ms(flops, nbytes)
+            for key, val in (("ms", ms), ("dev", dev), ("lib_dev", lib_dev), ("bound", bms),
+                             ("flops", flops), ("bytes", nbytes)):
+                judge[key] += val
+            per_shape.append(dict(B=8, C=c, T=t, dilation=dil, ms=ms, device_ms=dev,
+                                  library_device_ms=lib_dev, bound_ms=bms))
+            log(f"    kernel {ms:.3f} ms (device {dev:.3f}), conv1d chain device "
+                f"{lib_dev:.3f} ms, bound {bms:.4f} ms")
+        del x
+    torch.cuda.empty_cache()
+    results["judge_encoder_k8"] = judge
     x = torch.randn(2, 64, 3000, generator=g, device=DEVICE)
     for dil in (1, 3, 9):
         p = unit(64, seed=dil)
@@ -514,11 +568,61 @@ def small_agreement():
 
     for frames in (200, 1100):   # fused attention (<= 512) / flash (>= 1024)
         compare(frames, "exact")
+    small_streaming(cfg, gpu, cpu, proc)
     gpu.quantize(4)
     cpu.quantize(4)
     counts = compare(200, "quantize(bits=4)")
     require(counts["matmul_int4"] == 2 * 11 * 32 + 32,
             f"small int4: {counts['matmul_int4']} int4 launches, expected {2 * 11 * 32 + 32}")
+
+
+def cpu_window_noise(seed, item, window, shape, device):
+    """streaming._window_noise drawn on the CPU and moved to `device`, so that
+    a model on the card and one on the CPU get the same bits."""
+    import numpy as np
+    import torch
+
+    state = np.random.SeedSequence([seed, item, window]).generate_state(1, np.uint64)
+    g = torch.Generator().manual_seed(int(state[0]))
+    return torch.randn(shape, generator=g, dtype=torch.float32).to(device)
+
+
+def small_streaming(cfg, gpu, cpu, proc):
+    """A 400-frame clip past max_direct_seconds (200 frames) streams through
+    3 windows of 200 frames on the card and on the CPU, with the same window
+    noise (the base seed from torch's global generator, seeded alike)."""
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch import streaming
+
+    hop = cfg.audio_codec.hop_length
+    batch = proc(descriptions=["a dog barking"], audios=[mixture(400 * hop, 8000, 3)],
+                 anchors=[[("+", 0.05, 0.25)]])
+    limit_s = 200 * hop / 8000
+    draw = streaming._window_noise
+    streaming._window_noise = cpu_window_noise
+    try:
+        torch.manual_seed(11)
+        reset_counts()
+        a = gpu.separate(batch, max_direct_seconds=limit_s)
+        counts = read_counts()
+        torch.manual_seed(11)
+        b = cpu.separate(batch, max_direct_seconds=limit_s)
+    finally:
+        streaming._window_noise = draw
+    units = 3 * (len(cfg.audio_codec.encoder_rates) + 2 * len(cfg.audio_codec.decoder_rates))
+    expect = {"fused_glue_attention": 3 * cfg.transformer.n_layers * 32,
+              "fused_residual_unit": 3 * units, "flash_attention": 0, "matmul_int4": 0}
+    require(counts == expect, f"small streaming: launches {counts}, expected {expect}")
+    worst = 0.0
+    for got, ref in ((a.target[0], b.target[0]), (a.residual[0], b.residual[0])):
+        require(got.shape == ref.shape == (400 * hop,) and np.isfinite(got).all(),
+                "small streaming: bad output")
+        worst = max(worst, float(np.abs(got - ref).max()))
+    log(f"  streamed, 400 frames in 3 windows of 200: launches {counts}, max |gpu - cpu| = "
+        f"{worst:.3e}")
+    require(worst <= 2e-3, f"small streaming: card and CPU disagree ({worst:.3e} > 2e-3)")
 
 
 def kernel_wrappers():
@@ -651,6 +755,291 @@ def rerank_phase(model, batch, n_layers, nfe, gen):
             "preview_nfe8": {"ms": preview_ms, "peak_bytes": ppeak, "launches": pcounts}}
 
 
+def codec_units(codec):
+    """Residual units of one encode and of one decode (3 per block)."""
+    return 3 * len(codec.encoder_rates), 3 * len(codec.decoder_rates)
+
+
+def stream_phase(model, proc, n_layers, nfe, seed):
+    """A 60 s clip past max_direct_seconds=10 through separate(): 7 windows
+    of 10 s (fade 1 s, stride 9 s), at streaming_batch_windows 1 and 4 (each
+    call one encode and two decodes). `seed` seeds a new generator for each
+    counted run, so both draw the same window noise."""
+    import math
+
+    import numpy as np
+    import torch
+
+    sr, hop = model.sample_rate, model.hop_length
+    total = int(STREAM_SECONDS * sr)
+    win = int(STREAM_WINDOW_SECONDS * sr) // hop * hop
+    stride = win - min(sr // hop * hop, win // 2)
+    n_windows = 1 + math.ceil((total - win) / stride)
+    log(f"[stream] {STREAM_SECONDS:g} s clip, text prompt and two anchors, "
+        f"max_direct_seconds={STREAM_WINDOW_SECONDS:g}: {n_windows} windows")
+    batch = proc(descriptions=["a dog barking"], audios=[mixture(total, sr, 4)],
+                 anchors=[[("+", 5.0, 20.0), ("+", 40.0, 55.0)]])
+    enc, dec = codec_units(model.cfg.audio_codec)
+    model.max_direct_seconds = STREAM_WINDOW_SECONDS
+    out = {}
+    try:
+        for bw in (1, 4):
+            groups = -(-n_windows // bw)
+            model.streaming_batch_windows = bw
+            log(f"  streaming_batch_windows={bw}: {groups} separate() calls")
+            res, counts, first_ms, times, peak = drive(
+                f"stream bw={bw}", model, batch, STREAM_SECONDS,
+                {"fused_glue_attention": groups * n_layers * nfe,
+                 "fused_residual_unit": groups * (enc + 2 * dec), "flash_attention": 0,
+                 "matmul_int4": 0}, 2,
+                generator=torch.Generator(device=DEVICE).manual_seed(seed))
+            require(res.noise is None, "stream: the streamed result carries noise")
+            log(f"  timed runs (ms): {[round(t, 1) for t in times]}; p50 {p50(times):.1f} ms; "
+                f"realtime factor {STREAM_SECONDS * 1e3 / p50(times):.2f}x; peak memory "
+                f"{peak / 2**30:.2f} GiB")
+            out[bw] = (res.target[0].astype(np.float64), {
+                "p50_ms": p50(times), "runs_ms": times, "first_ms": first_ms,
+                "realtime_factor": STREAM_SECONDS * 1e3 / p50(times), "peak_bytes": peak,
+                "launches": counts})
+    finally:
+        del model.max_direct_seconds, model.streaming_batch_windows
+    a, b = out[1][0], out[4][0]
+    corr = float(np.corrcoef(a, b)[0, 1])
+    diff = float(np.abs(a - b).max())
+    snr = float(10 * np.log10(np.sum(a * a) / max(np.sum((a - b) ** 2), 1e-30)))
+    log(f"  target bw=4 vs bw=1: correlation {corr:.6f}, max |diff| {diff:.3e}, "
+        f"SNR {snr:.2f} dB")
+    require(np.isfinite(corr) and corr >= 0.99,
+            f"stream: bw=4 target correlation with bw=1 {corr:.4f} < 0.99")
+    return {"windows": n_windows, "bw1": out[1][1], "bw4": out[4][1], "corr_bw4_vs_bw1": corr,
+            "max_abs_diff_bw4_vs_bw1": diff, "snr_db_bw4_vs_bw1": snr}
+
+
+def judge_rerank(what, model, batch, judge, expect, timed_runs, gen):
+    """separate(k=8) with `judge` as the text ranker, scoring on the card;
+    the counted run's candidates are scored again by the judge's host path.
+    Returns the ranker, the counted run's record and its candidates."""
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch.config import JudgeRankerConfig
+    from sam_audio_tpu_torch.processor import SAMAudioJudgeProcessor
+    from sam_audio_tpu_torch.ranking.judge import JudgeRanker
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+
+    codec = judge.cfg.audio_codec
+    ranker = JudgeRanker(JudgeRankerConfig(), model=judge, device=DEVICE,
+                         processor=SAMAudioJudgeProcessor(
+                             codec.hop_length, codec.sample_rate,
+                             tokenizer=ByteFallbackTokenizer(judge.cfg.text_model.vocab_size)))
+    seen, score_ms = [], []
+    on_device = ranker.score_on_device
+
+    def spy(targets, sizes, descriptions, mixtures=None):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scores = on_device(targets, sizes, descriptions, mixtures=mixtures)
+        end.record()
+        torch.cuda.synchronize()
+        score_ms.append(start.elapsed_time(end))
+        if not seen:   # the counted run's candidates, mixture and scores
+            seen.append((targets.clone(), list(sizes), list(descriptions), mixtures.clone(),
+                         scores.float().cpu().numpy()))
+        return scores
+
+    ranker.score_on_device = spy
+    model.text_ranker = ranker
+    k = 8
+    res, counts, first_ms, times, peak = drive(what, model, batch, MIXTURE_SECONDS, expect,
+                                               timed_runs, reranking_candidates=k,
+                                               generator=gen)
+    model.text_ranker = None
+    ranker.score_on_device = on_device
+    require(bool(seen), f"{what}: the on-device scoring path was not taken")
+    targets, sizes, desc, mixtures, dev_scores = seen[0]
+    winner = int(np.argmax(dev_scores[0]))
+    n = sizes[0]
+    tgt = targets[0, :, :n].float().cpu().numpy()
+    mix = mixtures[0, 0, :n].float().cpu().numpy()
+    host_scores = ranker(extracted_audio=[tgt], input_audio=[np.broadcast_to(mix, (k, n))],
+                         descriptions=desc, sample_rate=model.sample_rate)
+    top = np.sort(dev_scores[0])
+    rec = {"first_ms": first_ms, "runs_ms": times, "peak_bytes": peak, "launches": counts,
+           "scores": dev_scores[0].tolist(), "winner": winner,
+           "winner_lead": float(top[-1] - top[-2]),
+           "host_argmax": int(np.argmax(host_scores[0])),
+           "host_scores": host_scores[0].tolist(),
+           "host_lead": float(np.sort(host_scores[0])[-1] - np.sort(host_scores[0])[-2]),
+           "max_abs_score_err_host": float(np.abs(host_scores - dev_scores).max()),
+           "score_ms": score_ms[1:]}
+    log(f"  scores on the card {np.round(dev_scores[0], 5).tolist()}; winner {winner} (lead "
+        f"{rec['winner_lead']:.3e}); host path argmax {rec['host_argmax']}; max |host - card| "
+        f"{rec['max_abs_score_err_host']:.3e}")
+    require(bool(np.isfinite(dev_scores).all() and np.isfinite(host_scores).all()),
+            f"{what}: non-finite scores")
+    require(dev_scores.shape == host_scores.shape == (1, k), f"{what}: scores of a bad shape")
+    require(np.array_equal(res.target[0], tgt[winner]),
+            f"{what}: the returned target is not the winning candidate")
+    return ranker, rec, (targets, sizes, desc, mixtures, dev_scores, host_scores)
+
+
+def check_ranking(what, rec, tol):
+    """The device scores must equal the host path's within `tol` (atol and
+    rtol), and the device winner must be the host path's argmax wherever the
+    host scores decide it: when the host's lead exceeds twice the largest
+    |host - device|. Under a smaller lead the two argmaxes are a numerical
+    tie, which the first check already bounds."""
+    import numpy as np
+
+    dev, host = (np.asarray(rec[n]) for n in ("scores", "host_scores"))
+    err = rec["max_abs_score_err_host"]
+    require(bool((np.abs(host - dev) <= tol + tol * np.abs(host)).all()),
+            f"{what}: device and host scores differ beyond atol {tol:g} + rtol {tol:g}")
+    decided = rec["host_lead"] > 2 * err
+    rec["argmax_decided"] = bool(decided)
+    log(f"  host lead {rec['host_lead']:.3e} vs 2 x max |host - device| {2 * err:.3e}: "
+        f"{'decided' if decided else 'a numerical tie'}; argmaxes "
+        f"{'agree' if rec['host_argmax'] == rec['winner'] else 'differ'}")
+    if decided:
+        require(rec["host_argmax"] == rec["winner"],
+                f"{what}: the host path's argmax differs from the winner")
+
+
+def judge_phase(model, proc, batch, n_layers, nfe, gen, jcfg=None):
+    """k=8 reranked on the card by a judge of the default config (random
+    weights, seed 0, bf16), counted and timed; its device scores held
+    against its host path on the same candidates. Then an ensemble with the
+    sound-activity ranker through the host path, and the int8 judge on the
+    same candidates. Last the same weights in fp32: on those candidates, and
+    in a k=8 separate of their own, held against the host path at 1e-5.
+    (With random weights the 8 scores lie within ~1e-5 of each other in
+    fp32, far under the bf16 rounding of the judge's outputs, so which
+    candidate wins is decided by rounding; check_ranking says when.)"""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch.config import SAMAudioJudgeConfig, SoundActivityRankerConfig
+    from sam_audio_tpu_torch.models.judge import SAMAudioJudgeModel
+    from sam_audio_tpu_torch.ranking.ranker import EnsembleRanker
+    from sam_audio_tpu_torch.ranking.sound_activity import SoundActivityRanker
+
+    jcfg = jcfg or SAMAudioJudgeConfig()
+    k = 8
+    # kernel 3: 36 for the separate (encode, the k targets' decode, the
+    # winner's residual) and 24 for the judge's encoder (12 units on the
+    # mixture at B=1, 12 on the candidates at B=8)
+    enc, dec = codec_units(model.cfg.audio_codec)
+    judge_enc, _ = codec_units(jcfg.audio_codec)
+    expect = {"fused_glue_attention": n_layers * nfe,
+              "fused_residual_unit": enc + 2 * dec + 2 * judge_enc,
+              "flash_attention": 0, "matmul_int4": 0}
+    widths = (f"ModernBERT {jcfg.text_model.num_hidden_layers} x {jcfg.text_model.hidden_size}, "
+              f"PE-AV 2 x {jcfg.transformer.num_layers} x {jcfg.transformer.hidden_size}")
+
+    log(f"[judge] SAMAudioJudgeConfig ({widths}), random weights (seed 0), "
+        f"{jcfg.compute_dtype}: counted and timed")
+    judge = SAMAudioJudgeModel.init_random(jcfg, seed=0, device=DEVICE)
+    torch.cuda.empty_cache()
+    ranker, rec, cands = judge_rerank("judge k=8", model, batch, judge, expect, TIMED_RUNS, gen)
+    targets, sizes, desc, mixtures, dev_scores, host_scores = cands
+    check_ranking("judge", rec, 2e-2)
+    # the judge's DAC-VAE encoder alone, on the mixture (B=1) and the k
+    # candidates (B=k): the part of the scoring that runs kernel 3
+    from sam_audio_tpu_torch.models import dacvae
+
+    def encode(values):
+        return lambda: dacvae.encode(judge.params["audio_codec"], values, jcfg.audio_codec,
+                                     judge.compute_dtype)
+
+    with torch.inference_mode():
+        enc_ms = (time_ms(encode(mixtures[..., :targets.shape[-1]].float()), iters=3)
+                  + time_ms(encode(targets.reshape(k, 1, -1).float()), iters=3))
+    rec["encoder_ms"] = enc_ms
+    log(f"  timed runs (ms): {[round(t, 1) for t in rec['runs_ms']]}; p50 "
+        f"{p50(rec['runs_ms']):.1f} ms; peak memory {rec['peak_bytes'] / 2**30:.2f} GiB; judge "
+        f"scoring alone (CUDA events) {[round(t, 2) for t in rec['score_ms']]} ms, p50 "
+        f"{p50(rec['score_ms']):.2f} ms, of which its DAC-VAE encoder {enc_ms:.2f} ms")
+
+    log("[judge] ensemble (judge 1.0 + sound activity 0.5) through the host path, anchors")
+    calls = {"judge": [], "sound_activity": [], "ensemble": []}
+
+    def recorded(name, fn):   # no score_on_device: separate() takes the host path
+        def call(**kw):
+            scores = fn(**kw)
+            calls[name].append((kw, scores))
+            return scores
+        return call
+
+    ensemble = EnsembleRanker(
+        [recorded("judge", ranker),
+         recorded("sound_activity", SoundActivityRanker(SoundActivityRankerConfig()))],
+        [1.0, 0.5])
+    model.text_ranker = recorded("ensemble", ensemble)
+    sr = model.sample_rate
+    anchored = proc(descriptions=["a dog barking"],
+                    audios=[mixture(int(MIXTURE_SECONDS * sr), sr, 0)],
+                    anchors=[[("+", 1.0, 4.0), ("-", 6.0, 7.5)]])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    ens_res = model.separate(anchored, reranking_candidates=k, generator=gen)
+    torch.cuda.synchronize()
+    ens_ms = (time.perf_counter() - t0) * 1e3
+    ens_counts = read_counts()
+    # the host path encodes the 8 (mixture, candidate) pairs as 16 streams in
+    # one call: 12 launches
+    ens_expect = {"fused_glue_attention": n_layers * nfe,
+                  "fused_residual_unit": enc + 2 * dec + judge_enc,
+                  "flash_attention": 0, "matmul_int4": 0}
+    require(ens_counts == ens_expect, f"ensemble: launches {ens_counts}, expected {ens_expect}")
+    require(all(len(c) == 1 for c in calls.values()),
+            "ensemble: the host path did not call the ensemble and each member once")
+    kw, ens_scores = calls["ensemble"][0]
+    require("spans" in kw, "ensemble: separate() passed no spans")
+    members = (calls["judge"][0][1], calls["sound_activity"][0][1])
+    weighted = 1.0 * members[0] + 0.5 * members[1]
+    ens_err = float(np.abs(ens_scores - weighted).max())
+    e_win = int(np.argmax(ens_scores[0]))
+    log(f"  {ens_ms:.1f} ms, launches {ens_counts}; judge {np.round(members[0][0], 5).tolist()}, "
+        f"sound activity {np.round(members[1][0], 4).tolist()}; ensemble winner {e_win}; "
+        f"max |ensemble - weighted sum| {ens_err:.3e}")
+    require(ens_err <= 1e-6, "ensemble: scores are not the weighted sum of its members'")
+    require(np.array_equal(ens_res.target[0], kw["extracted_audio"][0][e_win]),
+            "ensemble: the returned target is not the ensemble's winner")
+
+    log("[judge] int8 judge (quantize()) on the counted run's candidates")
+    judge.quantize()
+    torch.cuda.empty_cache()
+    q_scores = ranker.score_on_device(targets, sizes, desc, mixtures=mixtures).float().cpu().numpy()
+    q_err = float(np.abs(q_scores - dev_scores).max())
+    log(f"  int8 scores {np.round(q_scores[0], 5).tolist()}; winner {int(np.argmax(q_scores[0]))}; "
+        f"max |int8 - bf16| {q_err:.3e}")
+    require(bool(np.isfinite(q_scores).all()), "judge int8: non-finite scores")
+    del ranker, judge
+    torch.cuda.empty_cache()
+
+    log("[judge] the same weights in fp32: the bf16 run's candidates, then a k=8 separate")
+    judge32 = SAMAudioJudgeModel.init_random(dataclasses.replace(jcfg, compute_dtype="float32"),
+                                             seed=0, device=DEVICE)
+    ranker32, rec32, _ = judge_rerank("judge fp32 k=8", model, batch, judge32, expect, 0, gen)
+    check_ranking("judge fp32", rec32, 1e-5)
+    ref32 = ranker32.score_on_device(targets, sizes, desc, mixtures=mixtures).cpu().numpy()
+    rec["max_abs_diff_vs_fp32_judge"] = float(np.abs(ref32 - dev_scores).max())
+    rec["fp32_judge_argmax"] = int(np.argmax(ref32[0]))
+    log(f"  fp32 judge on the bf16 run's candidates: {np.round(ref32[0], 7).tolist()}, argmax "
+        f"{rec['fp32_judge_argmax']}, max |bf16 - fp32| {rec['max_abs_diff_vs_fp32_judge']:.3e}")
+    del ranker32, judge32
+    torch.cuda.empty_cache()
+    return {**rec, "p50_ms": p50(rec["runs_ms"]), "score_p50_ms": p50(rec["score_ms"]),
+            "fp32_winner_check": rec32,
+            "ensemble": {"ms": ens_ms, "launches": ens_counts, "winner": e_win,
+                         "max_abs_err_weighted_sum": ens_err},
+            "int8": {"scores": q_scores[0].tolist(), "max_abs_diff_vs_bf16": q_err}}
+
+
 def quantized_probe(what, model, batch, noise, ref, expect):
     """separate(k=1) of a quantized model with the exact model's noise;
     correlation and SNR of its target against the exact target."""
@@ -754,7 +1143,13 @@ def main() -> int:
     # 7. k=8 with the CLAP rerank
     rerank = rerank_phase(model, batch, n_layers, nfe, gen)
 
-    # 8. int4, against the exact model's target with the same noise
+    # 8. a 60 s clip streamed through 10 s windows
+    stream = stream_phase(model, proc, n_layers, nfe, seed=1)
+
+    # 9. k=8 reranked by the judge; the ensemble; the int8 judge
+    judge = judge_phase(model, proc, batch, n_layers, nfe, gen)
+
+    # 10. int4, against the exact model's target with the same noise
     noise = torch.randn((1, batch.anchor_alignment.shape[-1], 2 * cfg.audio_codec.codebook_dim),
                         generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE)
     ref = model.separate(batch, noise=noise).target[0].astype("float64")
@@ -767,7 +1162,7 @@ def main() -> int:
          "fused_glue_attention": n_layers * nfe, "fused_residual_unit": 36,
          "flash_attention": 0})
 
-    # 9. int8, on a fresh model with the same weights
+    # 11. int8, on a fresh model with the same weights
     log("[int8] quantize(bits=8) of a fresh model (seed 0), separate(k=1), 10 s clip")
     del model
     torch.cuda.empty_cache()
@@ -781,6 +1176,8 @@ def main() -> int:
         # "tpu_source", "max_err" and "kernel_ms" repeat "replaces",
         # "max_abs_err" and "ms" under a second set of names that readers use
         extra = {"per_launch_at": res["extra"]} if "extra" in res else {}
+        if "judge_encoder_k8" in res:   # kernel 3's B=8 launches of one judge scoring
+            extra["judge_encoder_k8_candidates"] = res["judge_encoder_k8"]
         return {**extra, "name": res["name"], "route": "cuda", "source": source,
                 "replaces": replaces, "tpu_source": replaces, "launches": launches,
                 "max_abs_err": res["max_abs_err"], "max_err": res["max_abs_err"],
@@ -813,7 +1210,8 @@ def main() -> int:
                             "peak_bytes": peak, "launches": counts},
                "long_45s": {"ms": long_times[0], "first_ms": long_ms,
                             "peak_bytes": long_peak, "launches": long_counts},
-               "rerank_k8_10s": rerank, "int4_10s": int4, "int8_10s": int8,
+               "rerank_k8_10s": rerank, "stream_60s": stream, "judge_k8_10s": judge,
+               "int4_10s": int4, "int8_10s": int8,
                "power": smi}
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:

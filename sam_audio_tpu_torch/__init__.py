@@ -1,6 +1,8 @@
-"""PyTorch/CUDA port of sam_audio_tpu (text-prompted separation).
+"""PyTorch/CUDA port of sam_audio_tpu: text-prompted separation, k-candidate
+reranking (CLAP, the judge, sound activity, their ensemble), streaming of
+long clips and the int8 / int4 serving modes.
 
-Plain tensor code is PyTorch; the three TPU (Pallas) kernels of the path are
+Plain tensor code is PyTorch; the four TPU (Pallas) kernels of the JAX package are
 hand-written CUDA kernels for Hopper (sm_90a) in `csrc/`, built with nvcc at
 first use (ops/_build.py). Entry points run on the card by default:
 

@@ -12,8 +12,10 @@ keeps every storage convention of that tree as it is:
   * torch layouts: Linear (out, in), Conv1d (out, in, k),
     ConvTranspose1d (in, out, k).
 
-So the bridge only unflattens and moves arrays to tensors. A reference
-`checkpoint.pt` goes through the JAX package's converter first.
+So the bridge only unflattens and moves arrays to tensors. The judge's tree
+keeps the same conventions: its PE-AV layers stacked on axis 0, its
+ModernBERT layers a list (`layers/0/...` keys). A reference `checkpoint.pt`
+goes through the JAX package's converter first.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from sam_audio_tpu_torch.config import SAMAudioConfig
+from sam_audio_tpu_torch.config import SAMAudioConfig, SAMAudioJudgeConfig
 from sam_audio_tpu_torch.utils import tree_map
 
 
@@ -70,25 +72,28 @@ def load_params(path: str, device="cpu"):
         return params_from_numpy({k: data[k] for k in data.files}, device)
 
 
-def cast_matmul_weights(tree, dtype: torch.dtype, _name: str = ""):
+def cast_matmul_weights(tree, dtype: torch.dtype, keep=(), _name: str = ""):
     """Store the linear, conv and embedding weights in `dtype`. Each of them
     is cast to the compute dtype where it is used (ops.nn.linear,
     ops.conv.conv1d, the residual-unit kernel), so casting once at load gives
     the same numbers without a cast per call. Norm weights and the T5
-    relative-position table stay fp32: they are read in fp32. Quantized
-    leaves (w8, w4 and their scales) are not "weight" and stay as stored."""
+    relative-position table stay fp32: they are read in fp32, and so do the
+    subtrees named in `keep`. Quantized leaves (w8, w4 and their scales) are
+    not "weight" and stay as stored."""
     if isinstance(tree, dict):
         out = {}
         for k, v in tree.items():
-            if (k == "weight" and isinstance(v, torch.Tensor) and v.ndim >= 2
+            if k in keep:
+                out[k] = v
+            elif (k == "weight" and isinstance(v, torch.Tensor) and v.ndim >= 2
                     and "norm" not in _name
                     and _name != "relative_attention_bias"):
                 out[k] = v.to(dtype)
             else:
-                out[k] = cast_matmul_weights(v, dtype, k)
+                out[k] = cast_matmul_weights(v, dtype, keep, k)
         return out
     if isinstance(tree, list):
-        return [cast_matmul_weights(v, dtype, _name) for v in tree]
+        return [cast_matmul_weights(v, dtype, keep, _name) for v in tree]
     return tree
 
 
@@ -131,3 +136,28 @@ def load_sam_audio(path: str, device="cuda", allow_random_towers: bool = False,
     if not allow_random_towers and tokenizer is None:
         model.tokenizer  # fail at load, not mid-separate, without a tokenizer
     return model
+
+
+def load_judge(path: str, device="cuda", **config_overrides):
+    """Load a judge snapshot from the local directory `path`: `config.json`
+    (SAMAudioJudgeConfig) and `params.npz` (the JAX package's judge tree,
+    int8-quantized trees included). No hub, no network. Returns a
+    models.judge.SAMAudioJudgeModel on `device`."""
+    from sam_audio_tpu_torch.models.judge import SAMAudioJudgeModel
+    from sam_audio_tpu_torch.models.sam_audio import resolve_device
+
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f"{path!r} is not a local judge snapshot directory (config.json + params.npz, "
+            "written by the JAX package); the port reads no hub")
+    device = resolve_device(device)
+    with open(os.path.join(path, "config.json")) as fin:
+        cfg_dict = json.load(fin)
+    cfg_dict.update(config_overrides)
+    npz = os.path.join(path, "params.npz")
+    if not os.path.exists(npz):
+        raise FileNotFoundError(
+            f"No params.npz in {path}; convert the reference checkpoint with the JAX "
+            "package's checkpoint.convert_judge_state_dict first")
+    return SAMAudioJudgeModel(SAMAudioJudgeConfig.from_dict(cfg_dict), load_params(npz, device),
+                              device=device)

@@ -1,5 +1,5 @@
-"""Configuration for the PyTorch port (a copy of sam_audio_tpu/config.py
-without the judge configs; the port imports nothing from the JAX package).
+"""Configuration for the PyTorch port (a copy of sam_audio_tpu/config.py; the
+port imports nothing from the JAX package).
 
 Mirrors the reference `config.json` schema (reference: sam_audio/model/config.py:10-251)
 so that published checkpoints' configs load unchanged, while using frozen
@@ -255,6 +255,86 @@ class SAMAudioConfig:
     def from_json(cls, path: str) -> "SAMAudioConfig":
         with open(path) as fin:
             return cls.from_dict(json.load(fin))
+
+
+@dataclass(frozen=True)
+class PEAVTransformerConfig:
+    """PE-AV audio transformer config used inside the judge
+    (reference: sam_audio/model/judge.py:7-8, core.audio_visual_encoder.config)."""
+
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    layer_norm_eps: float = 1e-5
+    max_positions: int = 16384
+    # Architecture switches honoured by models/peav.peav_apply, so a converted
+    # perception-models checkpoint runs whatever its block style: pre-LN or
+    # post-LN residuals, the MLP activation ("gelu", "gelu_tanh",
+    # "quick_gelu", "relu", "silu"; "swiglu" is inferred from the weights),
+    # and the position encoding ("sinusoidal", "learned", "none", "rope";
+    # "learned" is inferred when the checkpoint carries a position table).
+    prenorm: bool = True
+    act: str = "gelu_tanh"
+    pos: str = "sinusoidal"
+    rope_theta: float = 10000.0  # derived from the checkpoint's inv_freq
+    norm: str = "layernorm"  # or "rmsnorm"
+
+
+@dataclass(frozen=True)
+class ModernBertTextConfig:
+    """The part of HF's ModernBertConfig the judge's text tower needs
+    (reference: sam_audio/model/judge.py:48, config.py:246)."""
+
+    vocab_size: int = 50368
+    hidden_size: int = 768
+    num_hidden_layers: int = 22
+    num_attention_heads: int = 12
+    intermediate_size: int = 1152
+    max_position_embeddings: int = 8192
+    norm_eps: float = 1e-5
+    global_attn_every_n_layers: int = 3
+    local_attention: int = 128
+    global_rope_theta: float = 160000.0
+    local_rope_theta: float = 10000.0
+
+
+def _fields(cls):
+    return {f.name for f in dataclasses.fields(cls)}
+
+
+@dataclass(frozen=True)
+class SAMAudioJudgeConfig:
+    """Judge model config (reference: sam_audio/model/config.py:234-251)."""
+
+    audio_codec: DACVAEConfig = field(default_factory=DACVAEConfig)
+    transformer: PEAVTransformerConfig = field(default_factory=PEAVTransformerConfig)
+    text_model: ModernBertTextConfig = field(default_factory=ModernBertTextConfig)
+    finetune_transformer: PEAVTransformerConfig = field(
+        default_factory=PEAVTransformerConfig)
+    nth_text_layer: Optional[int] = 22
+    bottleneck_dim: int = 256
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "SAMAudioJudgeConfig":
+        d = {k: v for k, v in d.items() if k in _fields(cls)}
+        if isinstance(d.get("audio_codec"), dict):
+            d["audio_codec"] = DACVAEConfig(**_freeze(d["audio_codec"]))
+        # names the perception-models TransformerConfig may use
+        peav_aliases = {"num_hidden_layers": "num_layers", "n_layers": "num_layers",
+                        "num_attention_heads": "num_heads", "n_heads": "num_heads"}
+        for key in ("transformer", "finetune_transformer"):
+            if isinstance(d.get(key), dict):
+                raw = {peav_aliases.get(k, k): v for k, v in d[key].items()}
+                d[key] = PEAVTransformerConfig(
+                    **{k: v for k, v in raw.items() if k in _fields(PEAVTransformerConfig)})
+        if isinstance(d.get("text_model"), dict):
+            d["text_model"] = ModernBertTextConfig(
+                **{k: v for k, v in d["text_model"].items()
+                   if k in _fields(ModernBertTextConfig)})
+        return cls(**d)
 
 
 def tiny_test_config(**overrides) -> SAMAudioConfig:

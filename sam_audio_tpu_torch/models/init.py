@@ -15,7 +15,10 @@ import torch
 
 from sam_audio_tpu_torch.config import (
     DACVAEConfig,
+    ModernBertTextConfig,
+    PEAVTransformerConfig,
     SAMAudioConfig,
+    SAMAudioJudgeConfig,
     T5EncoderConfig,
     TransformerConfig,
 )
@@ -152,7 +155,7 @@ def t5_encoder_init(cfg: T5EncoderConfig, generator: torch.Generator, device):
     return _t5_init(cfg, _Init(generator, device))
 
 
-def dacvae_init(cfg: DACVAEConfig, ini: _Init):
+def dacvae_init(cfg: DACVAEConfig, ini: _Init, with_decoder: bool = True):
     def res_unit(d):
         return {"snake1": ini.snake(d), "conv1": ini.conv(d, d, 7),
                 "snake2": ini.snake(d), "conv2": ini.conv(d, d, 1)}
@@ -166,6 +169,8 @@ def dacvae_init(cfg: DACVAEConfig, ini: _Init):
         d *= 2
     enc["snake_out"] = ini.snake(d)
     enc["conv_out"] = ini.conv(d, cfg.latent_dim, 3)
+    if not with_decoder:   # the judge's codec encodes only
+        return {"encoder": enc, "in_proj": ini.conv(cfg.latent_dim, 2 * cfg.codebook_dim, 1)}
 
     d = cfg.decoder_dim
     dec = {"conv_in": ini.conv(cfg.latent_dim, d, 7), "blocks": []}
@@ -267,4 +272,63 @@ def sam_audio_init(cfg: SAMAudioConfig, generator: torch.Generator, device):
                           "proj": ini.linear(cfg.anchor_embedding_dim, dim, False)},
         "memory_proj": ini.linear(cfg.text_encoder.dim, dim),
         "text_encoder": _t5_init(cfg.text_encoder, ini),
+    }
+
+
+def peav_init(cfg: PEAVTransformerConfig, ini: _Init):
+    """models/peav.py's default tree (pre-LN, fc1/fc2 MLP), layers stacked."""
+    h = cfg.hidden_size
+    mlp = int(cfg.mlp_ratio * h)
+
+    def layer():
+        return {"ln1": ini.affine(h),
+                "attn": {n: ini.linear(h, h) for n in ("wq", "wk", "wv", "wo")},
+                "ln2": ini.affine(h),
+                "mlp": {"fc1": ini.linear(h, mlp), "fc2": ini.linear(mlp, h)}}
+
+    return {"layers": _stack([layer() for _ in range(cfg.num_layers)]),
+            "final_norm": ini.affine(h)}
+
+
+def modernbert_init(cfg: ModernBertTextConfig, ini: _Init):
+    """models/modernbert.py's tree: bias-free norms, layers a list, no
+    attention norm in layer 0."""
+    h = cfg.hidden_size
+
+    def layer(i):
+        p = {"attn": {"Wqkv": ini.linear(h, 3 * h, False), "Wo": ini.linear(h, h, False)},
+             "mlp": {"Wi": ini.linear(h, 2 * cfg.intermediate_size, False),
+                     "Wo": ini.linear(cfg.intermediate_size, h, False)},
+             "mlp_norm": ini.rms(h)}
+        if i:
+            p["attn_norm"] = ini.rms(h)
+        return p
+
+    return {"embeddings": {"tok_embeddings": {"weight": ini.normal((cfg.vocab_size, h))},
+                           "norm": ini.rms(h)},
+            "layers": [layer(i) for i in range(cfg.num_hidden_layers)],
+            "final_norm": ini.rms(h)}
+
+
+def judge_init(cfg: SAMAudioJudgeConfig, generator: torch.Generator, device):
+    """The judge's tree (models/judge.py), random, fp32: an encoder-only
+    DAC-VAE, two PE-AV towers, ModernBERT and the fusion projections."""
+    ini = _Init(generator, device)
+    h = cfg.transformer.hidden_size
+    bn = cfg.bottleneck_dim
+    return {
+        "audio_codec": dacvae_init(cfg.audio_codec, ini, with_decoder=False),
+        "data_proj": ini.linear(cfg.audio_codec.codebook_dim, h),
+        "transformer": peav_init(cfg.transformer, ini),
+        "finetune_transformer": peav_init(cfg.finetune_transformer, ini),
+        "text_model": modernbert_init(cfg.text_model, ini),
+        "cat_audio_proj": ini.linear(2 * h, bn),
+        "text_proj1": ini.linear(cfg.text_model.hidden_size, h, False),
+        "text_proj2": ini.linear(h, bn),
+        "layer_norm": ini.affine(bn),
+        "proj_audio_and_text": ini.linear(2 * bn, bn),
+        "finetune_data_proj": ini.linear(bn, cfg.finetune_transformer.hidden_size),
+        "head": ini.linear(cfg.finetune_transformer.hidden_size, 4, False),
+        "mean": ini.const((4,), 0.0),
+        "std": ini.const((4,), 1.0),
     }

@@ -11,6 +11,8 @@ Counterpart of sam_audio_tpu/models/sam_audio.py for the text-prompted path
     ranker (CLAP), the k targets are decoded and ranked and only the
     winner's residual is decoded; `preview_nfe` ranks cheap previews first.
   * `SAMAudio.quantize` — the int8 / int4 serving modes (ops/quant.py).
+  * clips past the direct limit stream through fixed windows
+    (`_separate_long`, streaming.py).
 
 Entry points run on the card unless the caller passes device="cpu"; with no
 GPU and no explicit CPU request they raise.
@@ -280,14 +282,20 @@ class SAMAudio:
         are decoded and scored, and only the winner's residual is decoded.
         `preview_nfe` (opt-in, not reference semantics): the candidates are
         solved and ranked at that cheap budget (8 => 4 midpoint steps), then
-        only the winning noise is solved at the full budget."""
+        only the winning noise is solved at the full budget.
+
+        Clips longer than `max_direct_seconds` (the argument, else the
+        model's attribute; at most the RoPE table's
+        `cfg.transformer.max_positions` frames) stream through
+        streaming.py's windows (`_separate_long`), with the noise drawn per
+        window from a seed taken from `generator`; the result then carries
+        noise=None. `model.streaming_window_s` (10 s) and
+        `model.streaming_batch_windows` (1) set the windows. Explicit
+        `noise=` forces the direct solve."""
         if preview_nfe is not None and (int(preview_nfe) < 2 or int(preview_nfe) % 2):
             raise ValueError(
                 "preview_nfe must be an even integer >= 2 (midpoint previews "
                 f"take 2 evals per step: preview_nfe=8 => 4 steps); got {preview_nfe}")
-        if predict_spans:
-            raise NotImplementedError(
-                "predict_spans is not ported yet (the spans slice)")
         if visual_stride != 1 or batch.masked_video is not None:
             raise NotImplementedError(
                 "visual prompting is not ported yet (the visual slice)")
@@ -304,13 +312,16 @@ class SAMAudio:
                                    / self.hop_length))
         if t_frames > limit:
             if noise is None:
-                raise NotImplementedError(
-                    f"{t_frames} frames exceeds the direct limit ({limit}); "
-                    "streaming long audio is not ported yet (the streaming "
-                    "slice). Pass noise= to force the direct solve.")
+                return self._separate_long(batch, k=k, generator=generator,
+                                           preview_nfe=preview_nfe,
+                                           predict_spans=predict_spans,
+                                           limit_frames=limit, ode_opt=ode_opt)
             logger.warning("separate: %d frames exceeds the direct limit (%d) "
                            "but explicit noise= forces the direct path",
                            t_frames, limit)
+        if predict_spans:
+            raise NotImplementedError(
+                "predict_spans is not ported yet (the spans slice)")
 
         dev = self.device
         audios = torch.as_tensor(np.asarray(batch.audios), dtype=torch.float32,
@@ -369,6 +380,39 @@ class SAMAudio:
         residual = trimmed(decode_channel(self.params, chosen, cfg=cfg, channel=1))
         return SeparationResult(target=target, residual=residual, noise=noise)
 
+    def _separate_long(self, batch, k: int, generator, preview_nfe, predict_spans: bool,
+                       limit_frames: int, ode_opt=None) -> SeparationResult:
+        """A batch whose clips exceed the direct limit, through streaming.py's
+        windows, one item at a time (reference model.py's direct path stops
+        at its RoPE table, ~400 s). One base seed is drawn from `generator`;
+        item i's windows draw their noise from (seed, i, window)."""
+        from sam_audio_tpu_torch.streaming import base_seed, separate_streaming
+
+        if predict_spans:
+            raise ValueError(
+                "predict_spans=True is unsupported beyond max_direct_seconds: span "
+                "prediction attends over the whole clip at once. Pass explicit "
+                "anchors= for long clips.")
+        seed = base_seed(generator)
+        # each window re-enters separate() directly, so it must fit the limit
+        window_s = min(float(getattr(self, "streaming_window_s", 10.0)),
+                       limit_frames * self.hop_length / self.sample_rate)
+        batch_windows = int(getattr(self, "streaming_batch_windows", 1))
+        audios = np.asarray(batch.audios)
+        sizes = [self.feature_idx_to_wav_idx(int(s)) for s in np.asarray(batch.sizes)]
+        target, residual = [], []
+        for i in range(audios.shape[0]):
+            res = separate_streaming(
+                self, batch.descriptions[i], audios[i, 0, : sizes[i]], window_s=window_s,
+                batch_windows=batch_windows,
+                anchors=(list(batch.anchors[i])
+                         if batch.anchors is not None and batch.anchors[i] else None),
+                reranking_candidates=k, seed=seed, item=i, preview_nfe=preview_nfe,
+                ode_opt=ode_opt)
+            target.append(res.target[: sizes[i]])
+            residual.append(res.residual[: sizes[i]])
+        return SeparationResult(target=target, residual=residual, noise=None)
+
     # -- reranking (reference model.py:306-330) ------------------------------
 
     def _choose(self, batch, tgt_dev, sizes, k: int):
@@ -388,15 +432,18 @@ class SAMAudio:
     def _rerank_on_device(self, batch, tgt_dev, sizes, k: int):
         """Scores the candidates without a host round trip when the text
         ranker can (ClapRanker.score_on_device: clips within the 10 s CLAP
-        window at its sample rate). Returns the winners' indices, or None
-        for the host path."""
+        window at its sample rate; JudgeRanker.score_on_device: frame-aligned
+        clips at the judge's rate, with the mixtures). Returns the winners'
+        indices, or None for the host path."""
         r = self.text_ranker
         if r is None or not hasattr(r, "supports_on_device"):
             return None
         if not r.supports_on_device(sizes, self.sample_rate):
             return None
-        scores = r.score_on_device(tgt_dev.reshape(len(sizes), k, -1), sizes,
-                                   batch.descriptions)
+        scores = r.score_on_device(
+            tgt_dev.reshape(len(sizes), k, -1), sizes, batch.descriptions,
+            mixtures=torch.as_tensor(np.asarray(batch.audios), dtype=torch.float32,
+                                     device=self.device))
         return [int(i) for i in torch.argmax(scores, dim=1).cpu()]
 
     def _rerank(self, batch, target, sizes, k: int):

@@ -173,3 +173,56 @@ def quantize_clap_params(clap_params):
     text["layers"] = layers
     out["text_branch"] = text
     return out
+
+
+def _quantize_groups(tree, paths):
+    """int8 for the {group: {name: linear}} entries found at `paths` in a
+    layer dict; names that are missing stay full precision."""
+    out = dict(tree)
+    for group, name in paths:
+        if group not in out:
+            continue
+        g = dict(out[group])
+        if (name in g and isinstance(g[name], dict) and "weight" in g[name]
+                and g[name]["weight"].ndim >= 2):
+            g[name] = quantize_linear(g[name])
+        out[group] = g
+    return out
+
+
+_PEAV_LAYER_LINEARS = (
+    ("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+    ("attn", "in_proj"),   # the fused-qkv name of some converted towers
+    ("mlp", "fc1"), ("mlp", "fc2"), ("mlp", "w1"), ("mlp", "w2"), ("mlp", "w3"),
+)
+
+_MODERNBERT_LAYER_LINEARS = (("attn", "Wqkv"), ("attn", "Wo"), ("mlp", "Wi"), ("mlp", "Wo"))
+
+
+def quantize_peav_params(peav_params):
+    """int8 for a PE-AV tower (models/peav.py, layers stacked)."""
+    out = dict(peav_params)
+    out["layers"] = _quantize_groups(peav_params["layers"], _PEAV_LAYER_LINEARS)
+    return out
+
+
+def quantize_modernbert_params(mb_params):
+    """int8 for the ModernBERT text tower (models/modernbert.py, layers a
+    list)."""
+    out = dict(mb_params)
+    out["layers"] = [_quantize_groups(layer, _MODERNBERT_LAYER_LINEARS)
+                     for layer in mb_params["layers"]]
+    return out
+
+
+def quantize_judge_params(judge_params):
+    """int8 for the judge: both PE-AV towers and ModernBERT run W8A8; the
+    DAC-VAE encoder, the fusion projections, the head and the norms stay
+    full precision."""
+    out = dict(judge_params)
+    for tower in ("transformer", "finetune_transformer"):
+        if tower in out:
+            out[tower] = quantize_peav_params(out[tower])
+    if "text_model" in out:
+        out["text_model"] = quantize_modernbert_params(out["text_model"])
+    return out

@@ -1,9 +1,11 @@
-"""Rotary position embeddings in the split-half layout.
+"""Rotary position embeddings.
 
-Counterpart of sam_audio_tpu/ops/rope.py:25-86. The q/k projection output
-channels are stored deinterleaved (rotary pair (2i, 2i+1) moved to
-(i, i + D/2)), so the rotation is two half-width multiplies. The tables are
-built in float64 numpy and stored as float32, exactly as the JAX package does.
+Counterpart of sam_audio_tpu/ops/rope.py:25-147. The DiT's q/k projection
+output channels are stored deinterleaved (rotary pair (2i, 2i+1) moved to
+(i, i + D/2)), so its rotation is two half-width multiplies
+(`apply_rope_half`). A PE-AV tower with rotary buffers rotates interleaved
+pairs (`apply_rope`). The tables are built in float64 numpy and stored as
+float32, exactly as the JAX package does.
 """
 
 from __future__ import annotations
@@ -39,3 +41,14 @@ def apply_rope_half(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
     x1 = xf[..., :d_half]
     x2 = xf[..., d_half:]
     return torch.cat([x1 * c - x2 * s, x1 * s + x2 * c], dim=-1).to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """Rotate interleaved rotary pairs: channels (2i, 2i + 1) by angle[i].
+    x: (B, S, H, D); cos/sin: (S', D/2). Computed in fp32, cast back."""
+    seqlen = x.shape[-3]
+    c = cos[:seqlen].float()[:, None, :]
+    s = sin[:seqlen].float()[:, None, :]
+    xf = x.float()
+    x0, x1 = xf[..., 0::2], xf[..., 1::2]
+    return torch.stack([x0 * c - x1 * s, x0 * s + x1 * c], dim=-1).reshape(x.shape).to(x.dtype)

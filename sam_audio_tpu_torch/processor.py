@@ -4,7 +4,14 @@ The text + audio + anchors path of the reference processor
 (sam_audio/processor.py:23-260): load/resample to 48 kHz, downmix to mono,
 right-pad to a batch, frame-index math (hop 1920 => 25 latent fps), anchor
 spans -> per-frame alignment tensors. Host-side numpy only; the model moves
-the arrays to its device.
+the arrays to its device. `SAMAudioJudgeProcessor` prepares the judge's
+(text, mixture, separated) inputs.
+
+Not ported, on purpose: the JAX processor's `pad_to_samples`,
+`bucket_seconds` and `pad_anchors_to` (sam_audio_tpu/processor.py:253-316)
+pad a batch to a fixed shape so that XLA reuses one compiled program. Eager
+PyTorch compiles no program per shape, and the padding changes no number
+(anchor slots past the last anchor are never referenced by the alignment).
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from sam_audio_tpu_torch.audio_io import load_audio
-from sam_audio_tpu_torch.config import SAMAudioConfig
+from sam_audio_tpu_torch.config import SAMAudioConfig, SAMAudioJudgeConfig
 from sam_audio_tpu_torch.ops.resample import resample_np
 
 Anchor = Tuple[str, float, float]
@@ -174,5 +181,81 @@ class SAMAudioProcessor:
         )
 
 
-__all__ = ["SAMAudioProcessor", "Batch", "batch_audio", "mask_from_sizes",
-           "ANCHOR_VOCAB"]
+class SAMAudioJudgeProcessor:
+    """The judge's inputs: tokenized text and reflect-padded, batched audio
+    pairs (reference: sam_audio/processor.py:263-379)."""
+
+    def __init__(self, audio_hop_length: int, audio_sampling_rate: int, tokenizer=None):
+        self.audio_hop_length = audio_hop_length
+        self.audio_sampling_rate = audio_sampling_rate
+        self.tokenizer = tokenizer
+
+    @classmethod
+    def from_pretrained(cls, path: str, allow_fallback_tokenizer: bool = False):
+        """`path` is a local judge snapshot directory (config.json; the
+        tokenizer's files, or the byte fallback when allowed)."""
+        from sam_audio_tpu_torch.text_tokenizer import get_text_tokenizer
+
+        if not os.path.isdir(path):
+            raise FileNotFoundError(
+                f"{path!r} is not a local judge snapshot directory; the port reads no hub")
+        with open(os.path.join(path, "config.json")) as fin:
+            config = SAMAudioJudgeConfig.from_dict(json.load(fin))
+        return cls(audio_hop_length=config.audio_codec.hop_length,
+                   audio_sampling_rate=config.audio_codec.sample_rate,
+                   tokenizer=get_text_tokenizer(path, allow_fallback=allow_fallback_tokenizer))
+
+    def _reflect_pad(self, wav: np.ndarray) -> np.ndarray:
+        if wav.ndim == 1:
+            wav = wav[None]
+        rem = wav.shape[-1] % self.audio_hop_length
+        if rem == 0:
+            return wav
+        pad = self.audio_hop_length - rem
+        return np.pad(wav, [(0, 0)] * (wav.ndim - 1) + [(0, pad)], mode="reflect")
+
+    def _process_audio(self, raw_audio, sampling_rate: Optional[int] = None):
+        # one bare array (or path) is ONE clip, as in the reference's
+        # non-list branch: a (C, T) array is not C mono items
+        if isinstance(raw_audio, (str, np.ndarray)):
+            raw_audio = [raw_audio]
+        if raw_audio and isinstance(raw_audio[0], str):
+            loaded = []
+            for f in raw_audio:
+                wav, sr = load_audio(f)
+                if sr != self.audio_sampling_rate:
+                    wav = resample_np(wav, sr, self.audio_sampling_rate)
+                loaded.append(wav.mean(0, keepdims=True))
+            raw_audio = loaded
+        elif sampling_rate is not None and sampling_rate != self.audio_sampling_rate:
+            raise ValueError(f"Expected sampling rate {self.audio_sampling_rate}, "
+                             f"got {sampling_rate}")
+        padded = [self._reflect_pad(np.asarray(x, np.float32)).T for x in raw_audio]
+        lengths = np.array([x.shape[0] for x in padded])
+        tmax = int(lengths.max())
+        input_values = np.zeros((len(padded), padded[0].shape[1], tmax), np.float32)
+        for i, x in enumerate(padded):
+            input_values[i, :, : x.shape[0]] = x.T
+        padding_mask = np.arange(tmax)[None] < lengths[:, None]
+        return {"input_values": input_values, "padding_mask": padding_mask}
+
+    def __call__(self, text=None, input_audio=None, separated_audio=None,
+                 sampling_rate: Optional[int] = None):
+        """Returns a dict of numpy arrays: input_ids / attention_mask (text),
+        input_values / padding_mask (mixtures), separated_values."""
+        batch = {}
+        if text is not None:
+            ids, mask = self.tokenizer(text if isinstance(text, (list, tuple)) else [text],
+                                       max_length=512)
+            batch["input_ids"] = ids
+            batch["attention_mask"] = mask
+        if input_audio is not None:
+            batch.update(self._process_audio(input_audio, sampling_rate))
+        if separated_audio is not None:
+            batch["separated_values"] = self._process_audio(
+                separated_audio, sampling_rate)["input_values"]
+        return batch
+
+
+__all__ = ["SAMAudioProcessor", "SAMAudioJudgeProcessor", "Batch", "batch_audio",
+           "mask_from_sizes", "ANCHOR_VOCAB"]

@@ -1,5 +1,6 @@
 """Ranker factory (reference: sam_audio/ranking/__init__.py:15-30). The port
-has the CLAP text ranker; the others come with later slices of the port."""
+has the CLAP, judge, sound-activity and ensemble rankers; ImageBind comes
+with the visual slice."""
 
 from __future__ import annotations
 
@@ -13,29 +14,36 @@ from sam_audio_tpu_torch.config import (
     RankerConfig,
     SoundActivityRankerConfig,
 )
-from sam_audio_tpu_torch.ranking.ranker import Ranker
-
-_LATER_SLICES = {
-    JudgeRankerConfig: "the judge slice",
-    ImageBindRankerConfig: "the visual slice",
-    SoundActivityRankerConfig: "the judge slice, with the other host scorers",
-    EnsembleRankerConfig: "the judge slice, once its members are ported",
-}
+from sam_audio_tpu_torch.ranking.ranker import EnsembleRanker, Ranker
 
 
 def create_ranker(config: Optional[RankerConfig], allow_random: bool = False,
                   device="cuda") -> Optional[Ranker]:
     """Build a ranker from its config on `device`. `allow_random=True`
     (tests, benchmarks) lets a weightless CLAP config use random weights
-    instead of raising."""
+    instead of raising. A judge loads its snapshot directory
+    (`checkpoint_or_model_id`) at first use."""
     if config is None:
         return None
+    if isinstance(config, SoundActivityRankerConfig):
+        from sam_audio_tpu_torch.ranking.sound_activity import SoundActivityRanker
+
+        return SoundActivityRanker(config)
     if isinstance(config, ClapRankerConfig):
         from sam_audio_tpu_torch.ranking.clap import ClapRanker
 
         return ClapRanker(config, allow_random=allow_random, device=device)
-    for cls, where in _LATER_SLICES.items():
-        if isinstance(config, cls):
-            raise NotImplementedError(
-                f"the {config.kind!r} ranker is not ported yet ({where})")
+    if isinstance(config, JudgeRankerConfig):
+        from sam_audio_tpu_torch.ranking.judge import JudgeRanker
+
+        return JudgeRanker(config, device=device)
+    if isinstance(config, ImageBindRankerConfig):
+        raise NotImplementedError(
+            "the 'imagebind' ranker is not ported yet (the visual slice)")
+    if isinstance(config, EnsembleRankerConfig):
+        rankers, weights = [], []
+        for _, (sub, weight) in config.items():
+            rankers.append(create_ranker(sub, allow_random=allow_random, device=device))
+            weights.append(weight)
+        return EnsembleRanker(rankers, weights)
     raise ValueError(f"Unknown ranker config: {config!r}")

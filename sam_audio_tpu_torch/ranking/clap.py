@@ -72,12 +72,13 @@ class ClapRanker(Ranker):
                                                       for s in sizes)
 
     @torch.inference_mode()
-    def score_on_device(self, targets: torch.Tensor, sizes, descriptions) -> torch.Tensor:
+    def score_on_device(self, targets: torch.Tensor, sizes, descriptions,
+                        mixtures=None) -> torch.Tensor:
         """targets: (bsz, k, T_pad) on the card at the CLAP rate; sizes: each
         item's true sample count (<= n_samples). Returns (bsz, k) scores on
         the card. Repeat-padding is the gather wav[(start + i) % size], the
         starts drawn in the host path's RandomState order (item-major, then
-        candidate)."""
+        candidate). The mixtures that separate() also passes are not read."""
         model = self.model
         cfg = model.cfg
         n = cfg.n_samples

@@ -290,3 +290,75 @@ def test_cuda_matmul_int4_refuses_what_it_cannot_take(cuda):
     q = _int4(cuda, 16, 120, 0)   # group 120: not a multiple of 16
     with pytest.raises(ValueError):
         matmul_int4(torch.randn(4, 120, device=cuda), q["w4"], q["w4_scale"])
+
+
+@pytest.mark.cuda
+def test_cuda_residual_unit_at_the_judge_encoder_shape(cuda):
+    """The judge's codec encoder at k=8: its first block's units (C=64) on 8
+    candidate streams at once, bf16; T cut from 480,000 to 48,000."""
+    x = torch.randn(8, 64, 48000, generator=torch.Generator(device=cuda).manual_seed(5),
+                    device=cuda).to(torch.bfloat16)
+    for dilation in (1, 3, 9):
+        p = _unit(cuda, 64, 40 + dilation)
+        n = fused_residual_unit.launches
+        out = fused_residual_unit(p, x, dilation, torch.bfloat16)
+        assert fused_residual_unit.launches == n + 1
+        ref = fused_residual_unit_plain(*residual_unit_operands(p, x, torch.bfloat16), dilation)
+        torch.testing.assert_close(out.float(), ref.float(), rtol=5e-2, atol=5e-2)
+
+
+def _cpu_window_noise(seed, item, window, shape, device):
+    """The port's window noise drawn on the CPU, so that a model on the card
+    and one on the CPU get the same bits."""
+    import numpy as np
+
+    state = np.random.SeedSequence([seed, item, window]).generate_state(1, np.uint64)
+    g = torch.Generator().manual_seed(int(state[0]))
+    return torch.randn(shape, generator=g, dtype=torch.float32).to(device)
+
+
+@pytest.mark.cuda
+def test_cuda_small_model_streams_like_the_cpu(cuda, monkeypatch):
+    """A small fp32 model (DiT head_dim 128: the fused attention kernel)
+    streams a clip through 3 windows on the card (kernels 1 and 3) and on
+    the CPU (their plain versions) with the same window noise."""
+    import numpy as np
+
+    from sam_audio_tpu_torch import SAMAudio, SAMAudioProcessor, streaming
+    from sam_audio_tpu_torch.config import (
+        DACVAEConfig, SAMAudioConfig, T5EncoderConfig, TransformerConfig)
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+    from sam_audio_tpu_torch.utils import tree_map
+
+    cfg = SAMAudioConfig(
+        in_channels=96,
+        audio_codec=DACVAEConfig(encoder_dim=32, encoder_rates=(2, 4), latent_dim=64,
+                                 decoder_dim=128, decoder_rates=(4, 2), codebook_dim=16,
+                                 sample_rate=8000),
+        text_encoder=T5EncoderConfig(dim=64, num_layers=2, num_heads=4, head_dim=16, d_ff=128,
+                                     vocab_size=512),
+        transformer=TransformerConfig(dim=256, n_heads=2, n_layers=2, dropout=0.0,
+                                      context_dim=256, max_positions=2048,
+                                      frequency_embedding_dim=64, out_channels=32),
+        span_predictor=None, compute_dtype="float32")
+    tok = ByteFallbackTokenizer(512)
+    gpu = SAMAudio.init_random(cfg, seed=0, device=cuda, tokenizer=tok)
+    cpu = SAMAudio(cfg, tree_map(lambda x: x.cpu(), gpu.params), device="cpu", tokenizer=tok,
+                   allow_random_towers=True)
+    monkeypatch.setattr(streaming, "_window_noise", _cpu_window_noise)
+    rng = np.random.RandomState(0)
+    wav = (0.3 * np.sin(np.arange(3200) * 0.05) + 0.05 * rng.randn(3200)).astype(np.float32)
+    batch = SAMAudioProcessor(8, 8000)(descriptions=["a tone"], audios=[wav[None]],
+                                       anchors=[[("+", 0.1, 0.3)]])
+    out = {}
+    for name, model in (("gpu", gpu), ("cpu", cpu)):
+        torch.manual_seed(3)
+        n1, n3 = fused_glue_attention.launches, fused_residual_unit.launches
+        out[name] = model.separate(batch, max_direct_seconds=0.2)   # 1600-sample windows
+        if name == "gpu":
+            assert fused_glue_attention.launches - n1 == 3 * 2 * 32
+            assert fused_residual_unit.launches - n3 == 3 * 18
+    for a, b in ((out["gpu"].target[0], out["cpu"].target[0]),
+                 (out["gpu"].residual[0], out["cpu"].residual[0])):
+        assert a.shape == b.shape == (3200,) and np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, rtol=0, atol=2e-3)

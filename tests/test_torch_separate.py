@@ -148,8 +148,10 @@ def test_unported_options_raise(tmp_path):
     # preview_nfe is ported: without a ranker it is ignored, as in JAX
     assert np.isfinite(tm.separate(batch, reranking_candidates=2, preview_nfe=8,
                                    generator=torch.Generator().manual_seed(0)).target[0]).all()
-    with pytest.raises(NotImplementedError, match="streaming"):
-        tm.separate(batch, max_direct_seconds=0.001)
+    # past the direct limit the clip streams (tests/test_torch_streaming.py)
+    streamed = tm.separate(batch, max_direct_seconds=0.001,
+                           generator=torch.Generator().manual_seed(0))
+    assert streamed.noise is None and np.isfinite(streamed.target[0]).all()
     proc = SAMAudioProcessor(cfg.audio_codec.hop_length, cfg.audio_codec.sample_rate)
     with pytest.raises(NotImplementedError, match="visual"):
         proc(descriptions=["x"], audios=[np.zeros(8, np.float32)],
