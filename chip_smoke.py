@@ -19,8 +19,11 @@ Phases (any failure exits non-zero):
   4. small   — a small model in fp32 through separate() on the card (the
                kernels) and on the CPU (the plain versions): must agree;
                then a clip past max_direct_seconds streamed through 3
-               windows, with the same window noise on both; then the same
-               after quantize(bits=4).
+               windows, with the same window noise on both; then a visual
+               prompt through a small PE tower (k=1) on both; then
+               save_pretrained -> load_sam_audio onto the card, whose
+               visual separate must be bit-identical; then the same after
+               quantize(bits=4).
   5. main    — the default SAMAudioConfig (sam-audio-large widths), random
                weights from a seed, bf16, a 10 s 48 kHz mixture with a text
                prompt, separate(k=1): one counted run, then timed runs.
@@ -48,6 +51,20 @@ Phases (any failure exits non-zero):
                linear through the int4 kernel), held against the exact bf16
                model with the same noise (correlation and SNR).
  11. int8    — the same probe after quantize(bits=8) of a fresh model.
+ 12. visual  — a fresh model of main's weights (its video gate opened to
+               0.5: at init it is 0, which would make the video inert) with
+               a PE-Core-L14-336 tower (PerceptionEncoderConfig: 24 x 1024,
+               16 heads, 336 px, 577 tokens a frame; random weights, seed 0,
+               bf16); the 10 s clip with 250 masked uint8 frames of 360 x
+               640 (mask_videos): separate(k=1) counted and timed, the PE
+               encode timed alone; visual_stride=4; k=8 ranked on the card
+               by ImageBind (imagebind_huge widths, random weights), held
+               against its host path (check_ranking); quantize(bits=8) of a
+               fresh visual model, which quantizes the PE tower too,
+               against the bf16 target with the same noise.
+ 13. visual stream — a 30 s clip with 750 frames past max_direct_seconds=10
+               (4 windows) at streaming_batch_windows 1 and 4; the two
+               targets must agree.
 Each path is driven with the launch counts set to 0 just before it and read
 just after; each must launch exactly the kernels its shapes select.
 The second-to-last line is the `{"kernels": [...]}` record, the last line
@@ -569,6 +586,7 @@ def small_agreement():
     for frames in (200, 1100):   # fused attention (<= 512) / flash (>= 1024)
         compare(frames, "exact")
     small_streaming(cfg, gpu, cpu, proc)
+    small_visual(cfg, gpu, cpu, proc, tok)
     gpu.quantize(4)
     cpu.quantize(4)
     counts = compare(200, "quantize(bits=4)")
@@ -623,6 +641,92 @@ def small_streaming(cfg, gpu, cpu, proc):
     log(f"  streamed, 400 frames in 3 windows of 200: launches {counts}, max |gpu - cpu| = "
         f"{worst:.3e}")
     require(worst <= 2e-3, f"small streaming: card and CPU disagree ({worst:.3e} > 2e-3)")
+
+
+def small_pe_config():
+    """A narrow PE tower (2 layers of 128, 2 heads, 112 px, 65 tokens a
+    frame) with the default output width, which the DiT's video projection
+    takes."""
+    import dataclasses
+
+    from sam_audio_tpu_torch.config import PerceptionEncoderConfig
+
+    return dataclasses.replace(PerceptionEncoderConfig(), width=128, vit_layers=2, vit_heads=2,
+                               image_size=112)
+
+
+def video_frames(n: int, seed: int, hw=(360, 640)):
+    """n uint8 RGB frames (N, 3, H, W) and a 0/1 mask of the same shape,
+    from the seed: a moving gradient with noise; the mask a box."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = np.empty((n, 3, h, w), np.uint8)
+    for i in range(n):
+        base = (xx + 4 * i) % 256
+        frames[i, 0] = base
+        frames[i, 1] = (yy + 2 * i) % 256
+        frames[i, 2] = (base // 2 + yy // 2) % 256
+    frames = np.clip(frames.astype(np.int16) + rng.randint(-20, 21, frames.shape, np.int16),
+                     0, 255).astype(np.uint8)
+    mask = np.zeros_like(frames)
+    mask[:, :, h // 4: 3 * h // 4, w // 3: 2 * w // 3] = 1
+    return frames, mask
+
+
+def small_visual(cfg, gpu, cpu, proc, tok):
+    """A visual prompt through a small PE tower (fp32, the same weights) on
+    the card and on the CPU, k=1, the same noise; then save_pretrained ->
+    load_sam_audio onto the card, whose visual separate must be
+    bit-identical to the model it was saved from."""
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch.checkpoint import load_sam_audio
+    from sam_audio_tpu_torch.models.pe_clip import PerceptionEncoder
+    from sam_audio_tpu_torch.utils import tree_map
+
+    pe_cfg = small_pe_config()
+    enc = PerceptionEncoder.init_random(pe_cfg, seed=1, device=DEVICE, compute_dtype=torch.float32)
+    gpu.vision_encoder = enc
+    cpu.vision_encoder = PerceptionEncoder(pe_cfg, tree_map(lambda x: x.cpu(), enc.params),
+                                           device="cpu", compute_dtype=torch.float32)
+    for m in (gpu, cpu):   # open the video gate (0 at init)
+        m.params["align_masked_video"]["gate"].fill_(0.5)
+    frames = 200
+    n = frames * cfg.audio_codec.hop_length
+    video, mask = video_frames(57, 5, hw=(90, 160))
+    batch = proc(descriptions=["a dog barking"], audios=[mixture(n, 8000, 6)],
+                 masked_videos=proc.mask_videos([video], [mask]))
+    noise = np.random.RandomState(6).randn(1, frames, 2 * cfg.audio_codec.codebook_dim
+                                           ).astype(np.float32)
+    reset_counts()
+    a = gpu.separate(batch, noise=noise)
+    counts = read_counts()
+    b = cpu.separate(batch, noise=noise)
+    worst = max(float(np.abs(x - y).max()) for x, y in ((a.target[0], b.target[0]),
+                                                        (a.residual[0], b.residual[0])))
+    units = len(cfg.audio_codec.encoder_rates) * 3 + 2 * len(cfg.audio_codec.decoder_rates) * 3
+    expect = {"fused_glue_attention": cfg.transformer.n_layers * 32,
+              "fused_residual_unit": units, "flash_attention": 0, "matmul_int4": 0}
+    log(f"  visual prompt (PE {pe_cfg.vit_layers} x {pe_cfg.width}, 57 frames of 90 x 160 "
+        f"-> {frames}), k=1: launches {counts}, max |gpu - cpu| = {worst:.3e}")
+    require(counts == expect, f"small visual: launches {counts}, expected {expect}")
+    require(np.isfinite(a.target[0]).all() and a.target[0].shape == (n,),
+            "small visual: bad output")
+    require(worst <= 2e-3, f"small visual: card and CPU disagree ({worst:.3e} > 2e-3)")
+    snap = os.path.join(HERE, "build", "small_snapshot")
+    gpu.save_pretrained(snap)
+    loaded = load_sam_audio(snap, device=DEVICE, allow_random_towers=True, tokenizer=tok)
+    loaded.vision_encoder = enc
+    c = loaded.separate(batch, noise=noise)
+    same = all(torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+               for x, y in ((a.target[0], c.target[0]), (a.residual[0], c.residual[0])))
+    log(f"  save_pretrained -> load_sam_audio on the card: separate bit-identical: {same}")
+    require(same, "small: the reloaded snapshot does not separate bit-identically")
+    gpu.vision_encoder = cpu.vision_encoder = None
 
 
 def kernel_wrappers():
@@ -1040,13 +1144,13 @@ def judge_phase(model, proc, batch, n_layers, nfe, gen, jcfg=None):
             "int8": {"scores": q_scores[0].tolist(), "max_abs_diff_vs_bf16": q_err}}
 
 
-def quantized_probe(what, model, batch, noise, ref, expect):
+def quantized_probe(what, model, batch, noise, ref, expect, timed_runs=TIMED_RUNS):
     """separate(k=1) of a quantized model with the exact model's noise;
     correlation and SNR of its target against the exact target."""
     import numpy as np
 
     res, counts, first_ms, times, peak = drive(what, model, batch, MIXTURE_SECONDS, expect,
-                                               TIMED_RUNS, noise=noise)
+                                               timed_runs, noise=noise)
     a = res.target[0].astype(np.float64)
     corr = float(np.corrcoef(a, ref)[0, 1])
     snr = float(10 * np.log10(np.sum(ref * ref) / max(np.sum((a - ref) ** 2), 1e-30)))
@@ -1059,6 +1163,212 @@ def quantized_probe(what, model, batch, noise, ref, expect):
     return {"p50_ms": p50(times), "runs_ms": times, "first_ms": first_ms,
             "realtime_factor": MIXTURE_SECONDS * 1e3 / p50(times), "peak_bytes": peak,
             "launches": counts, "corr_vs_exact": corr, "snr_db_vs_exact": snr}
+
+
+VISUAL_SECONDS = 10.0
+VISUAL_STREAM_SECONDS = 30.0
+VIDEO_FPS = 25          # one frame a latent frame (48 kHz / hop 1920)
+
+
+def visual_model(cfg, tok):
+    """main's weights (seed 0) with the video gate opened, and a PE-Core
+    tower of the default PerceptionEncoderConfig (random, seed 0, bf16)."""
+    from sam_audio_tpu_torch import SAMAudio
+    from sam_audio_tpu_torch.models.pe_clip import PerceptionEncoder
+
+    model = SAMAudio.init_random(cfg, seed=0, device=DEVICE, tokenizer=tok)
+    model.params["align_masked_video"]["gate"].fill_(0.5)
+    model.vision_encoder = PerceptionEncoder.init_random(cfg.vision_encoder, seed=0,
+                                                         device=DEVICE)
+    return model
+
+
+def pe_encode_ms(model, videos, t_frames, stride, runs=3):
+    """The PE encode of `videos` alone (models/pe_clip.encode_videos), CUDA
+    events, the median of `runs`."""
+    import torch
+
+    from sam_audio_tpu_torch.models.pe_clip import encode_videos
+
+    times = []
+    with torch.inference_mode():
+        for _ in range(runs + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            encode_videos(model, videos, t_frames, stride=stride)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+    return p50(times[1:])
+
+
+def visual_phase(cfg, tok, proc, n_layers, nfe):
+    """Visual prompting at full width: k=1, visual_stride=4, k=8 ranked by
+    ImageBind on the card, and the int8 model with its PE tower quantized."""
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch.config import ImageBindRankerConfig
+    from sam_audio_tpu_torch.models.imagebind import ImageBindHugeConfig, ImageBindHugeModel
+    from sam_audio_tpu_torch.ranking.imagebind import ImageBindRanker
+
+    pe = cfg.vision_encoder
+    grid = pe.image_size // pe.patch_size
+    log(f"[visual] main's weights (video gate 0.5), PE-Core tower {pe.name}: {pe.vit_layers} x "
+        f"{pe.width}, {pe.vit_heads} heads, {pe.image_size} px, {grid * grid + 1} tokens a "
+        f"frame (random, seed 0, bf16)")
+    model = visual_model(cfg, tok)
+    sr = model.sample_rate
+    n_frames = int(VISUAL_SECONDS * VIDEO_FPS)
+    video, mask = video_frames(n_frames, 7)
+    masked = proc.mask_videos([video], [mask])
+    batch = proc(descriptions=["a dog barking"],
+                 audios=[mixture(int(VISUAL_SECONDS * sr), sr, 0)], masked_videos=masked)
+    t_frames = batch.anchor_alignment.shape[-1]
+    log(f"  {VISUAL_SECONDS:g} s clip, {n_frames} masked frames of {video.shape[2]} x "
+        f"{video.shape[3]} -> {t_frames} latent frames")
+    expect = {"fused_glue_attention": n_layers * nfe, "fused_residual_unit": 36,
+              "flash_attention": 0, "matmul_int4": 0}
+    out = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    for stride in (1, 4):
+        log(f"[visual] separate(k=1, visual_stride={stride})")
+        _, counts, first_ms, times, peak = drive(f"visual stride={stride}", model, batch,
+                                                 VISUAL_SECONDS, expect, TIMED_RUNS,
+                                                 generator=gen, visual_stride=stride)
+        enc_ms = pe_encode_ms(model, batch.masked_video, t_frames, stride)
+        out[stride] = {"p50_ms": p50(times), "runs_ms": times, "first_ms": first_ms,
+                       "realtime_factor": VISUAL_SECONDS * 1e3 / p50(times), "peak_bytes": peak,
+                       "launches": counts, "pe_encode_ms": enc_ms}
+        log(f"  timed runs (ms): {[round(t, 1) for t in times]}; p50 {p50(times):.1f} ms; "
+            f"realtime factor {VISUAL_SECONDS * 1e3 / p50(times):.2f}x; peak memory "
+            f"{peak / 2**30:.2f} GiB; PE encode alone (CUDA events) {enc_ms:.1f} ms")
+    saved = out[1]["pe_encode_ms"] - out[4]["pe_encode_ms"]
+    log(f"  visual_stride=4 saves {saved:.1f} ms of the PE encode "
+        f"({out[1]['pe_encode_ms']:.1f} -> {out[4]['pe_encode_ms']:.1f} ms)")
+
+    ib_cfg = ImageBindHugeConfig()
+    log(f"[visual] k=8 ranked by ImageBind (imagebind_huge widths: vision {ib_cfg.vision_layers}"
+        f" x {ib_cfg.vision_dim}, audio {ib_cfg.audio_layers} x {ib_cfg.audio_dim}; random, "
+        f"seed 0, fp32) on the card")
+    ranker = ImageBindRanker(ImageBindRankerConfig(), device=DEVICE,
+                             model=ImageBindHugeModel.init_random(ib_cfg, seed=0, device=DEVICE))
+    seen, score_ms = [], []
+    on_device = ranker.score_on_device
+
+    def spy(targets, sizes, videos, sample_rate=48_000):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        scores = on_device(targets, sizes, videos, sample_rate=sample_rate)
+        end.record()
+        torch.cuda.synchronize()
+        score_ms.append(start.elapsed_time(end))
+        if not seen:
+            seen.append((targets.cpu().numpy(), list(sizes), scores.cpu().numpy()))
+        return scores
+
+    ranker.score_on_device = spy
+    model.visual_ranker = ranker
+    k = 8
+    res, counts, first_ms, times, peak = drive("visual k=8 imagebind", model, batch,
+                                               VISUAL_SECONDS, expect, TIMED_RUNS,
+                                               reranking_candidates=k, generator=gen)
+    model.visual_ranker = None
+    require(bool(seen), "visual k=8: the on-device scoring path was not taken")
+    targets, sizes, dev_scores = seen[0]
+    winner = int(np.argmax(dev_scores[0]))
+    host = ranker(extracted_audio=[targets[0, :, :sizes[0]]], videos=batch.masked_video,
+                  sample_rate=sr)
+    top, htop = np.sort(dev_scores[0]), np.sort(host[0])
+    rec = {"p50_ms": p50(times), "runs_ms": times, "first_ms": first_ms, "peak_bytes": peak,
+           "launches": counts, "scores": dev_scores[0].tolist(), "winner": winner,
+           "winner_lead": float(top[-1] - top[-2]), "host_scores": host[0].tolist(),
+           "host_argmax": int(np.argmax(host[0])), "host_lead": float(htop[-1] - htop[-2]),
+           "max_abs_score_err_host": float(np.abs(host - dev_scores).max()),
+           "score_ms": score_ms[1:]}
+    log(f"  scores on the card {np.round(dev_scores[0], 6).tolist()}; winner {winner}; host path "
+        f"argmax {rec['host_argmax']}; max |host - card| {rec['max_abs_score_err_host']:.3e}")
+    require(np.array_equal(res.target[0], targets[0, winner, :sizes[0]]),
+            "visual k=8: the returned target is not the winning candidate")
+    check_ranking("visual imagebind", rec, 1e-3)
+    log(f"  timed runs (ms): {[round(t, 1) for t in times]}; p50 {p50(times):.1f} ms; peak "
+        f"memory {peak / 2**30:.2f} GiB; ImageBind scoring alone (CUDA events) "
+        f"{[round(t, 2) for t in score_ms[1:]]} ms")
+    del ranker.score_on_device, ranker, model
+    torch.cuda.empty_cache()
+
+    noise = torch.randn((1, t_frames, 2 * cfg.audio_codec.codebook_dim),
+                        generator=torch.Generator(device=DEVICE).manual_seed(5), device=DEVICE)
+    log("[visual] quantize(bits=8) of a fresh visual model (the PE tower too), k=1, against "
+        "the bf16 target with the same noise")
+    model = visual_model(cfg, tok)
+    ref = model.separate(batch, noise=noise).target[0].astype("float64")
+    model.quantize(8)
+    require("w8" in model.vision_encoder.params["layers"]["attn"]["wq"],
+            "visual int8: the PE tower was not quantized")
+    torch.cuda.empty_cache()
+    int8 = quantized_probe("visual int8", model, batch, noise, ref, expect, timed_runs=1)
+    del model
+    torch.cuda.empty_cache()
+    return {"k1": out[1], "stride4": out[4], "pe_encode_saved_ms_stride4": saved,
+            "k8_imagebind": rec, "int8": int8}
+
+
+def visual_stream_phase(cfg, tok, proc, n_layers, nfe, seed):
+    """A 30 s clip with 750 masked frames past max_direct_seconds=10 through
+    separate(): 4 windows of 10 s, each conditioned on its frames (the
+    global nearest-frame map), at streaming_batch_windows 1 and 4."""
+    import math
+
+    import numpy as np
+    import torch
+
+    model = visual_model(cfg, tok)
+    sr, hop = model.sample_rate, model.hop_length
+    total = int(VISUAL_STREAM_SECONDS * sr)
+    win = int(STREAM_WINDOW_SECONDS * sr) // hop * hop
+    stride = win - min(sr // hop * hop, win // 2)
+    n_windows = 1 + math.ceil((total - win) / stride)
+    n_frames = int(VISUAL_STREAM_SECONDS * VIDEO_FPS)
+    video, mask = video_frames(n_frames, 8)
+    batch = proc(descriptions=["a dog barking"], audios=[mixture(total, sr, 9)],
+                 masked_videos=proc.mask_videos([video], [mask]))
+    del video, mask
+    log(f"[visual stream] {VISUAL_STREAM_SECONDS:g} s clip with {n_frames} masked frames, "
+        f"max_direct_seconds={STREAM_WINDOW_SECONDS:g}: {n_windows} windows")
+    enc, dec = codec_units(model.cfg.audio_codec)
+    model.max_direct_seconds = STREAM_WINDOW_SECONDS
+    out = {}
+    for bw in (1, 4):
+        groups = -(-n_windows // bw)
+        model.streaming_batch_windows = bw
+        log(f"  streaming_batch_windows={bw}: {groups} separate() calls")
+        res, counts, first_ms, times, peak = drive(
+            f"visual stream bw={bw}", model, batch, VISUAL_STREAM_SECONDS,
+            {"fused_glue_attention": groups * n_layers * nfe,
+             "fused_residual_unit": groups * (enc + 2 * dec), "flash_attention": 0,
+             "matmul_int4": 0}, 2, generator=torch.Generator(device=DEVICE).manual_seed(seed))
+        require(res.noise is None, "visual stream: the streamed result carries noise")
+        log(f"  timed runs (ms): {[round(t, 1) for t in times]}; p50 {p50(times):.1f} ms; "
+            f"realtime factor {VISUAL_STREAM_SECONDS * 1e3 / p50(times):.2f}x; peak memory "
+            f"{peak / 2**30:.2f} GiB")
+        out[bw] = (res.target[0].astype(np.float64), {
+            "p50_ms": p50(times), "runs_ms": times, "first_ms": first_ms,
+            "realtime_factor": VISUAL_STREAM_SECONDS * 1e3 / p50(times), "peak_bytes": peak,
+            "launches": counts})
+    del model
+    torch.cuda.empty_cache()
+    a, b = out[1][0], out[4][0]
+    corr = float(np.corrcoef(a, b)[0, 1])
+    snr = float(10 * np.log10(np.sum(a * a) / max(np.sum((a - b) ** 2), 1e-30)))
+    log(f"  target bw=4 vs bw=1: correlation {corr:.6f}, max |diff| {float(np.abs(a - b).max()):.3e}"
+        f", SNR {snr:.2f} dB")
+    require(np.isfinite(corr) and corr >= 0.99,
+            f"visual stream: bw=4 target correlation with bw=1 {corr:.4f} < 0.99")
+    return {"windows": n_windows, "bw1": out[1][1], "bw4": out[4][1], "corr_bw4_vs_bw1": corr,
+            "snr_db_bw4_vs_bw1": snr}
 
 
 def main() -> int:
@@ -1171,6 +1481,14 @@ def main() -> int:
         "int8", model, batch, noise, ref,
         {"matmul_int4": 0, "fused_glue_attention": n_layers * nfe,
          "fused_residual_unit": 36, "flash_attention": 0})
+    del model
+    torch.cuda.empty_cache()
+
+    # 12. visual prompting at full width: k=1, stride 4, k=8 ImageBind, int8
+    visual = visual_phase(cfg, tok, proc, n_layers, nfe)
+
+    # 13. a 30 s clip with its video streamed through 10 s windows
+    visual_stream = visual_stream_phase(cfg, tok, proc, n_layers, nfe, seed=2)
 
     def entry(res, source, replaces, launches, ms, plain, lib, bms, by, dev, lib_dev):
         # "tpu_source", "max_err" and "kernel_ms" repeat "replaces",
@@ -1211,8 +1529,8 @@ def main() -> int:
                "long_45s": {"ms": long_times[0], "first_ms": long_ms,
                             "peak_bytes": long_peak, "launches": long_counts},
                "rerank_k8_10s": rerank, "stream_60s": stream, "judge_k8_10s": judge,
-               "int4_10s": int4, "int8_10s": int8,
-               "power": smi}
+               "int4_10s": int4, "int8_10s": int8, "visual_10s": visual,
+               "visual_stream_30s": visual_stream, "power": smi}
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "summary": summary,

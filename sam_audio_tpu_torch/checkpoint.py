@@ -15,14 +15,15 @@ keeps every storage convention of that tree as it is:
 So the bridge only unflattens and moves arrays to tensors. The judge's tree
 keeps the same conventions: its PE-AV layers stacked on axis 0, its
 ModernBERT layers a list (`layers/0/...` keys). A reference `checkpoint.pt`
-goes through the JAX package's converter first.
+is converted by the port's own converters (convert.py), and `save_params`
+writes a tree back in the JAX package's `params.npz` layout.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Mapping
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -65,6 +66,30 @@ def params_from_numpy(flat_or_tree, device="cpu"):
         tree)
 
 
+def flatten(tree, prefix: str = ""):
+    """A tree of tensors / arrays -> its flat `a/b/0/c` dict of numpy arrays
+    (the JAX package's flatten_pytree). bfloat16 tensors are widened to
+    float32, exactly (numpy has no bfloat16)."""
+    out = {}
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            out.update(flatten(v, f"{prefix}{k}/"))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(flatten(v, f"{prefix}{i}/"))
+    else:
+        if isinstance(tree, torch.Tensor):
+            t = tree.detach().cpu()
+            tree = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        out[prefix[:-1]] = np.asarray(tree)
+    return out
+
+
+def save_params(path: str, params):
+    """Write `params` as the flat npz the JAX package's load_params reads."""
+    np.savez(path, **flatten(params))
+
+
 def load_params(path: str, device="cpu"):
     """A flat `a/b/0/c` npz (the JAX package's `save_params`, e.g. a
     converted CLAP checkpoint) -> its tree of tensors on `device`."""
@@ -98,13 +123,17 @@ def cast_matmul_weights(tree, dtype: torch.dtype, keep=(), _name: str = ""):
 
 
 def load_sam_audio(path: str, device="cuda", allow_random_towers: bool = False,
-                   tokenizer=None, **config_overrides):
-    """Load the `config.json` + `params.npz` snapshot that the JAX package's
-    `SAMAudio.save_pretrained` writes, quantized (w8 / w4) trees included.
-    Returns a models.sam_audio.SAMAudio on `device`, with the text ranker of
-    `cfg.text_ranker`. Without a text tower in the snapshot, a random one is
-    made only when `allow_random_towers=True` (tests), which also lets a
-    weightless CLAP ranker take random weights."""
+                   tokenizer=None, t5_path: Optional[str] = None, **config_overrides):
+    """Load a local snapshot directory: `config.json` and either `params.npz`
+    (the tree that `SAMAudio.save_pretrained` or the JAX package writes,
+    quantized trees included) or the reference's `checkpoint.pt`, converted
+    here (convert.convert_sam_audio_state_dict, strict). `t5_path` is an HF
+    T5 encoder state dict (.pt) for the text tower, which checkpoint.pt does
+    not hold (reference model.py:346-359). Returns a models.sam_audio.SAMAudio
+    on `device`, with the rankers of `cfg.text_ranker` and
+    `cfg.visual_ranker`. Without a text tower, a random one is made only when
+    `allow_random_towers=True` (tests), which also lets a weightless ranker
+    take random weights."""
     from sam_audio_tpu_torch.models.init import t5_encoder_init
     from sam_audio_tpu_torch.models.sam_audio import SAMAudio, resolve_device
     from sam_audio_tpu_torch.ranking import create_ranker
@@ -115,24 +144,37 @@ def load_sam_audio(path: str, device="cuda", allow_random_towers: bool = False,
     cfg_dict.update(config_overrides)
     cfg = SAMAudioConfig.from_dict(cfg_dict)
     npz = os.path.join(path, "params.npz")
-    if not os.path.exists(npz):
-        raise FileNotFoundError(
-            f"No params.npz in {path}; convert a reference checkpoint.pt with "
-            "the JAX package's converter (scripts/convert_checkpoint.py) first")
-    params = load_params(npz, device)
+    pt = os.path.join(path, "checkpoint.pt")
+    if os.path.exists(npz):
+        params = load_params(npz, device)
+    elif os.path.exists(pt):
+        from sam_audio_tpu_torch.convert import (
+            convert_sam_audio_state_dict, load_torch_state_dict)
+
+        params = params_from_numpy(
+            convert_sam_audio_state_dict(load_torch_state_dict(pt), cfg), device)
+    else:
+        raise FileNotFoundError(f"No params.npz or checkpoint.pt in {path}")
+    if t5_path is not None:
+        from sam_audio_tpu_torch.convert import convert_t5_state_dict, load_torch_state_dict
+
+        params["text_encoder"] = params_from_numpy(
+            convert_t5_state_dict(load_torch_state_dict(t5_path), cfg.text_encoder), device)
     if "text_encoder" not in params:
         if not allow_random_towers:
             raise FileNotFoundError(
-                f"The snapshot {path} has no text_encoder parameters. Export "
-                "one with the converted T5 tower; random text towers are for "
-                "tests only (allow_random_towers=True).")
+                f"The snapshot {path} has no text_encoder parameters. Pass "
+                "t5_path= (an HF T5 encoder state dict) or convert one into the "
+                "snapshot with `python -m sam_audio_tpu_torch.convert --snapshot ... "
+                "--t5 ...`; random text towers are for tests only "
+                "(allow_random_towers=True).")
         gen = torch.Generator(device=device).manual_seed(0)
         params["text_encoder"] = t5_encoder_init(cfg.text_encoder, gen, device)
+    rankers = {name: create_ranker(getattr(cfg, name), allow_random=allow_random_towers,
+                                   device=device)
+               for name in ("text_ranker", "visual_ranker")}
     model = SAMAudio(cfg, params, device=device, tokenizer=tokenizer,
-                     allow_random_towers=allow_random_towers,
-                     text_ranker=create_ranker(cfg.text_ranker,
-                                               allow_random=allow_random_towers,
-                                               device=device))
+                     allow_random_towers=allow_random_towers, **rankers)
     if not allow_random_towers and tokenizer is None:
         model.tokenizer  # fail at load, not mid-separate, without a tokenizer
     return model
@@ -149,7 +191,8 @@ def load_judge(path: str, device="cuda", **config_overrides):
     if not os.path.isdir(path):
         raise FileNotFoundError(
             f"{path!r} is not a local judge snapshot directory (config.json + params.npz, "
-            "written by the JAX package); the port reads no hub")
+            "written by `python -m sam_audio_tpu_torch.convert --judge`); the port reads "
+            "no hub")
     device = resolve_device(device)
     with open(os.path.join(path, "config.json")) as fin:
         cfg_dict = json.load(fin)
@@ -157,7 +200,7 @@ def load_judge(path: str, device="cuda", **config_overrides):
     npz = os.path.join(path, "params.npz")
     if not os.path.exists(npz):
         raise FileNotFoundError(
-            f"No params.npz in {path}; convert the reference checkpoint with the JAX "
-            "package's checkpoint.convert_judge_state_dict first")
+            f"No params.npz in {path}; convert the reference checkpoint with "
+            "`python -m sam_audio_tpu_torch.convert --judge --snapshot ... --out ...` first")
     return SAMAudioJudgeModel(SAMAudioJudgeConfig.from_dict(cfg_dict), load_params(npz, device),
                               device=device)

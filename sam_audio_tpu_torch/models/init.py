@@ -17,6 +17,7 @@ from sam_audio_tpu_torch.config import (
     DACVAEConfig,
     ModernBertTextConfig,
     PEAVTransformerConfig,
+    PerceptionEncoderConfig,
     SAMAudioConfig,
     SAMAudioJudgeConfig,
     T5EncoderConfig,
@@ -275,19 +276,19 @@ def sam_audio_init(cfg: SAMAudioConfig, generator: torch.Generator, device):
     }
 
 
-def peav_init(cfg: PEAVTransformerConfig, ini: _Init):
-    """models/peav.py's default tree (pre-LN, fc1/fc2 MLP), layers stacked."""
+def _peav_layer(cfg: PEAVTransformerConfig, ini: _Init):
     h = cfg.hidden_size
     mlp = int(cfg.mlp_ratio * h)
+    return {"ln1": ini.affine(h),
+            "attn": {n: ini.linear(h, h) for n in ("wq", "wk", "wv", "wo")},
+            "ln2": ini.affine(h),
+            "mlp": {"fc1": ini.linear(h, mlp), "fc2": ini.linear(mlp, h)}}
 
-    def layer():
-        return {"ln1": ini.affine(h),
-                "attn": {n: ini.linear(h, h) for n in ("wq", "wk", "wv", "wo")},
-                "ln2": ini.affine(h),
-                "mlp": {"fc1": ini.linear(h, mlp), "fc2": ini.linear(mlp, h)}}
 
-    return {"layers": _stack([layer() for _ in range(cfg.num_layers)]),
-            "final_norm": ini.affine(h)}
+def peav_init(cfg: PEAVTransformerConfig, ini: _Init):
+    """models/peav.py's default tree (pre-LN, fc1/fc2 MLP), layers stacked."""
+    return {"layers": _stack([_peav_layer(cfg, ini) for _ in range(cfg.num_layers)]),
+            "final_norm": ini.affine(cfg.hidden_size)}
 
 
 def modernbert_init(cfg: ModernBertTextConfig, ini: _Init):
@@ -332,3 +333,97 @@ def judge_init(cfg: SAMAudioJudgeConfig, generator: torch.Generator, device):
         "mean": ini.const((4,), 0.0),
         "std": ini.const((4,), 1.0),
     }
+
+
+def pe_clip_init(cfg: PerceptionEncoderConfig, generator: torch.Generator, device):
+    """models/pe_clip.py's tree (PE-Core CLIP image tower), random, fp32:
+    layers stacked, the attentive pool, a bias-free output projection."""
+    ini = _Init(generator, device)
+    w = cfg.width
+    mlp = int(w * cfg.mlp_ratio)
+    grid = cfg.image_size // cfg.patch_size
+    n_tokens = grid * grid + (1 if cfg.use_cls_token else 0)
+
+    def layer():
+        return {"ln1": ini.affine(w),
+                "attn": {n: ini.linear(w, w) for n in ("wq", "wk", "wv", "wo")},
+                "ln2": ini.affine(w),
+                "mlp": {"fc1": ini.linear(w, mlp), "fc2": ini.linear(mlp, w)}}
+
+    return {
+        "patch_embed": {"weight": ini.normal((w, 3, cfg.patch_size, cfg.patch_size), 0.02)},
+        "cls_token": ini.normal((w,), 0.02),
+        "pos_embed": ini.normal((n_tokens, w), 0.02),
+        "layers": _stack([layer() for _ in range(cfg.vit_layers)]),
+        "ln_post": ini.affine(w),
+        "attn_pool": {"probe": ini.normal((1, w), 0.02),
+                      **{n: ini.linear(w, w) for n in ("wq", "wk", "wv", "wo")},
+                      "ln": ini.affine(w)},
+        "proj": ini.linear(w, cfg.dim, bias=False),
+    }
+
+
+def imagebind_init(cfg, generator: torch.Generator, device):
+    """The light ImageBind towers' tree (models/imagebind.py ImageBindConfig):
+    linear patch embeddings, PE-AV trunks, bias-free projections."""
+    ini = _Init(generator, device)
+
+    def branch(patch_in, hidden, layers, heads):
+        tf = PEAVTransformerConfig(hidden_size=hidden, num_layers=layers, num_heads=heads)
+        return {"patch_embed": ini.linear(patch_in, hidden),
+                "transformer": peav_init(tf, ini),
+                "proj": ini.linear(hidden, cfg.embed_dim, bias=False)}
+
+    return {"audio": branch(cfg.audio_patch ** 2, cfg.audio_hidden, cfg.audio_layers,
+                            cfg.audio_heads),
+            "vision": branch(3 * cfg.image_patch ** 2, cfg.vision_hidden, cfg.vision_layers,
+                             cfg.vision_heads)}
+
+
+def imagebind_huge_init(cfg, generator: torch.Generator, device, scale: float = 0.02):
+    """imagebind_huge's converted tree (models/imagebind.py
+    ImageBindHugeConfig), random, fp32: the audio trunk's blocks carry
+    torch-MHA bias_kv and layer scale and its stem a norm; the vision trunk
+    is plain pre-LN behind a trunk-level LayerNorm, with a Conv3d stem."""
+    ini = _Init(generator, device)
+
+    def trunk(dim, layers, heads, bias_kv, layer_scale):
+        tf = PEAVTransformerConfig(hidden_size=dim, num_layers=layers, num_heads=heads,
+                                   pos="none", act="gelu", layer_norm_eps=cfg.ln_eps)
+
+        def one():
+            p = _peav_layer(tf, ini)
+            if bias_kv:
+                p["attn"]["bias_k"] = ini.normal((dim,), scale)
+                p["attn"]["bias_v"] = ini.normal((dim,), scale)
+            if layer_scale:
+                p["ls1"] = ini.const((dim,), 1e-4)
+                p["ls2"] = ini.const((dim,), 1e-4)
+            return p
+
+        return {"layers": _stack([one() for _ in range(layers)])}
+
+    gh = (cfg.n_mels - cfg.audio_kernel) // cfg.audio_stride + 1
+    gw = (cfg.target_frames - cfg.audio_kernel) // cfg.audio_stride + 1
+    g = cfg.image_size // cfg.vision_patch
+    audio = {
+        "stem": {"weight": ini.normal((cfg.audio_dim, 1, cfg.audio_kernel, cfg.audio_kernel),
+                                      scale)},
+        "stem_norm": ini.affine(cfg.audio_dim),
+        "cls_token": ini.normal((1, 1, cfg.audio_dim), scale),
+        "pos_embed": ini.normal((1, gh * gw + 1, cfg.audio_dim), scale),
+        "trunk": trunk(cfg.audio_dim, cfg.audio_layers, cfg.audio_heads, True, True),
+        "head_norm": ini.affine(cfg.audio_dim),
+        "head_proj": {"weight": ini.normal((cfg.embed_dim, cfg.audio_dim), scale)},
+    }
+    vision = {
+        "stem": {"weight": ini.normal((cfg.vision_dim, 3, cfg.vision_frames, cfg.vision_patch,
+                                       cfg.vision_patch), scale)},
+        "cls_token": ini.normal((1, 1, cfg.vision_dim), scale),
+        "pos_embed": ini.normal((1, g * g + 1, cfg.vision_dim), scale),
+        "pre_ln": ini.affine(cfg.vision_dim),
+        "trunk": trunk(cfg.vision_dim, cfg.vision_layers, cfg.vision_heads, False, False),
+        "head_norm": ini.affine(cfg.vision_dim),
+        "head_proj": {"weight": ini.normal((cfg.embed_dim, cfg.vision_dim), scale)},
+    }
+    return {"audio": audio, "vision": vision}

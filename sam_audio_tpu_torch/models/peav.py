@@ -5,10 +5,14 @@ The judge runs both audios through a shared Perception-Encoder-AV
 sam_audio/model/judge.py:7-8, 46-47, 101-126). One parameter layout (per
 layer: ln1, attn {wq, wk, wv, wo}, ln2, mlp {fc1, fc2} or swiglu {w1, w2,
 w3}; optional per-head q/k norms, bias_k/bias_v and layer scales; optional
-top-level pos_embed, ln_pre and final_norm) runs every block style the JAX
-package's converter maps onto it, with the switches of the config (prenorm,
-act, pos, norm). Layers are stacked on axis 0. Attention is plain PyTorch,
-as in the JAX package (no Pallas kernel runs in this tower).
+top-level pos_embed, ln_pre and final_norm) runs every block style the
+converters (convert.convert_peav_tower) map onto it, with the switches of the
+config (prenorm, act, pos, norm). Layers are stacked on axis 0. Self-attention
+goes through ops.attention.attend, as in the JAX package: 128-wide heads over
+>= 1024 frames with no bias_k take the flash kernel (kernel 2), everything
+else the plain `sdpa` (the default judge's 64-wide heads over 250 frames, and
+ImageBind's trunks). The ImageBind models run their trunks through this
+body too.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch.nn.functional as F
 
 from sam_audio_tpu_torch.config import PEAVTransformerConfig
 from sam_audio_tpu_torch.ops import nn as N
-from sam_audio_tpu_torch.ops.attention import sdpa
+from sam_audio_tpu_torch.ops.attention import attend
 from sam_audio_tpu_torch.ops.rope import apply_rope, precompute_rope
 from sam_audio_tpu_torch.utils import layer_slice
 
@@ -69,7 +73,7 @@ def _attention(a, y, b, t, nh, hd, eps, rope, padding_mask, compute_dtype):
         v = torch.cat([v, a["bias_v"].reshape(1, 1, nh, hd).expand(b, 1, nh, hd).to(v.dtype)], 1)
         if mask is not None:
             mask = torch.cat([mask, torch.ones((b, 1), dtype=mask.dtype, device=mask.device)], 1)
-    o = sdpa(q, k, v, key_padding_mask=mask)
+    o = attend(q, k, v, key_padding_mask=mask)
     return N.linear(a["wo"], o.reshape(b, t, nh * hd), compute_dtype)
 
 

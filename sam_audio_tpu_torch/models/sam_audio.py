@@ -1,16 +1,21 @@
 """SAMAudio: promptable audio source separation via conditional flow matching.
 
-Counterpart of sam_audio_tpu/models/sam_audio.py for the text-prompted path
-(reference: sam_audio/model/model.py:75-362):
+Counterpart of sam_audio_tpu/models/sam_audio.py (reference:
+sam_audio/model/model.py:75-362):
 
   * `forward` — one velocity-field evaluation (noisy latents + conditioning
     -> velocity), reference model.py:130-180.
-  * `SAMAudio.separate` — codec-encode, T5-encode, condition, integrate the
-    ODE (midpoint, 16 steps = 32 DiT evaluations), codec-decode target and
-    residual. Reference model.py:247-338. With k candidates and a text
-    ranker (CLAP), the k targets are decoded and ranked and only the
+  * `SAMAudio.separate` — codec-encode, T5-encode, condition (text, anchors,
+    and a masked video through the PE-Core vision tower, models/pe_clip.py),
+    integrate the ODE (midpoint, 16 steps = 32 DiT evaluations),
+    codec-decode target and residual. Reference model.py:247-338. With k
+    candidates and a ranker (a text ranker, or the visual ranker when the
+    batch has video), the k targets are decoded and ranked and only the
     winner's residual is decoded; `preview_nfe` ranks cheap previews first.
-  * `SAMAudio.quantize` — the int8 / int4 serving modes (ops/quant.py).
+  * `SAMAudio.quantize` — the int8 / int4 serving modes (ops/quant.py); int8
+    also quantizes an attached vision tower.
+  * `SAMAudio.save_pretrained` — config.json + params.npz in the JAX
+    package's layout.
   * clips past the direct limit stream through fixed windows
     (`_separate_long`, streaming.py).
 
@@ -99,8 +104,10 @@ def forward(params, cfg: SAMAudioConfig, noisy_audio, audio_features,
 def separate_latents(params, audios, text_ids, text_mask, anchor_ids,
                      anchor_alignment, audio_pad_mask, noise, *,
                      cfg: SAMAudioConfig, candidates: int = 1,
-                     ode_method: str = "midpoint", ode_step_size: float = 2 / 32):
-    """Encode -> condition -> ODE. audios (B, 1, Tw); noise (B*k, T, 2C).
+                     ode_method: str = "midpoint", ode_step_size: float = 2 / 32,
+                     video_features: Optional[torch.Tensor] = None):
+    """Encode -> condition -> ODE. audios (B, 1, Tw); noise (B*k, T, 2C);
+    video_features (B, vision_dim, T) or None for no visual prompt.
     Returns the generated latents (B*k, T, 2C) = [target || residual]."""
     compute_dtype = DTYPES[cfg.compute_dtype]
     lat = dacvae.encode(params["audio_codec"], audios, cfg.audio_codec,
@@ -111,8 +118,9 @@ def separate_latents(params, audios, text_ids, text_mask, anchor_ids,
                               cfg.text_encoder, compute_dtype=compute_dtype)
     b, t, _ = audio_features.shape
     # zeros when there is no visual prompt (reference model.py:186-191)
-    video_features = torch.zeros((b, cfg.vision_encoder.dim, t),
-                                 device=audio_features.device)
+    if video_features is None:
+        video_features = torch.zeros((b, cfg.vision_encoder.dim, t),
+                                     device=audio_features.device)
 
     def rep(x):  # candidate expansion, item-major (reference model.py:193-206)
         return x if candidates <= 1 else torch.repeat_interleave(x, candidates, 0)
@@ -176,7 +184,8 @@ class SAMAudio:
     """
 
     def __init__(self, cfg: SAMAudioConfig, params, device="cuda", tokenizer=None,
-                 allow_random_towers: bool = False, text_ranker=None):
+                 allow_random_towers: bool = False, text_ranker=None,
+                 visual_ranker=None, vision_encoder=None):
         from sam_audio_tpu_torch.checkpoint import cast_matmul_weights
 
         self.cfg = cfg
@@ -190,6 +199,13 @@ class SAMAudio:
         # scores the k candidates of separate(reranking_candidates=k); a
         # ranking.Ranker, e.g. ranking.clap.ClapRanker
         self.text_ranker = text_ranker
+        # ranks the candidates of a batch with video (ranking.imagebind)
+        self.visual_ranker = visual_ranker
+        # the PE-Core tower (models/pe_clip.PerceptionEncoder) ships apart
+        # from checkpoint.pt (reference model.py:346-359); without one a
+        # visual prompt raises unless allow_random_towers (tests)
+        self.vision_encoder = vision_encoder
+        self._warned_visual_host = False
 
     @classmethod
     def init_random(cls, cfg: SAMAudioConfig, seed: int = 0, device="cuda",
@@ -206,6 +222,25 @@ class SAMAudio:
         from sam_audio_tpu_torch.checkpoint import load_sam_audio
 
         return load_sam_audio(path, device=device, **kwargs)
+
+    def save_pretrained(self, out_dir: str) -> str:
+        """Write `out_dir/config.json` and `out_dir/params.npz` in the JAX
+        package's layout (its save_pretrained / train/export.py), which
+        `from_pretrained(out_dir)` and the JAX package load back. The current
+        params are written, quantized trees included; weights stored in
+        bf16 are widened to fp32, exactly. Attached towers (rankers, the
+        vision encoder) live in their own artifacts and are not written."""
+        import dataclasses
+        import json
+        import os
+
+        from sam_audio_tpu_torch.checkpoint import save_params
+
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "config.json"), "w") as f:
+            json.dump(dataclasses.asdict(self.cfg), f, indent=2)
+        save_params(os.path.join(out_dir, "params.npz"), self.params)
+        return out_dir
 
     @property
     def sample_rate(self) -> int:
@@ -255,16 +290,18 @@ class SAMAudio:
 
         bits=8 — W8A8: the DiT's hot linears and the input projection run
         int8 x int8 -> int32 (per-channel weight scales, per-token activation
-        scales). The JAX package also quantizes an attached PE vision tower
-        here; the port has no vision tower yet (the visual slice).
+        scales). An attached PE vision tower's block linears take the same
+        path (ops.quant.quantize_pe_params).
         bits=4 — packed int4 weight storage with group-128 scales; the
         products run through kernel 4 (ops/int4_matmul.py). On the H100 it
         saves weight memory, not time.
 
         Returns self."""
-        from sam_audio_tpu_torch.ops.quant import quantize_sam_audio_params
+        from sam_audio_tpu_torch.ops.quant import quantize_pe_params, quantize_sam_audio_params
 
         self.params = quantize_sam_audio_params(self.params, bits)
+        if bits == 8 and self.vision_encoder is not None:
+            self.vision_encoder.params = quantize_pe_params(self.vision_encoder.params)
         return self
 
     @torch.inference_mode()
@@ -291,14 +328,18 @@ class SAMAudio:
         window from a seed taken from `generator`; the result then carries
         noise=None. `model.streaming_window_s` (10 s) and
         `model.streaming_batch_windows` (1) set the windows. Explicit
-        `noise=` forces the direct solve."""
+        `noise=` forces the direct solve.
+
+        A batch with `masked_video` (processor(masked_videos=...)) is
+        conditioned on the PE-Core features of its frames, one a latent
+        frame. `visual_stride` (opt-in, not reference semantics) encodes
+        every stride-th frame and interpolates the features between them.
+        With k > 1 and a `visual_ranker`, the ranker scores the candidates
+        against the video."""
         if preview_nfe is not None and (int(preview_nfe) < 2 or int(preview_nfe) % 2):
             raise ValueError(
                 "preview_nfe must be an even integer >= 2 (midpoint previews "
                 f"take 2 evals per step: preview_nfe=8 => 4 steps); got {preview_nfe}")
-        if visual_stride != 1 or batch.masked_video is not None:
-            raise NotImplementedError(
-                "visual prompting is not ported yet (the visual slice)")
         cfg = self.cfg
         ode_opt = ode_opt or DFLT_ODE_OPT
         k = int(reranking_candidates)
@@ -314,6 +355,7 @@ class SAMAudio:
             if noise is None:
                 return self._separate_long(batch, k=k, generator=generator,
                                            preview_nfe=preview_nfe,
+                                           visual_stride=visual_stride,
                                            predict_spans=predict_spans,
                                            limit_frames=limit, ode_opt=ode_opt)
             logger.warning("separate: %d frames exceeds the direct limit (%d) "
@@ -328,6 +370,10 @@ class SAMAudio:
                                  device=dev)
         b = audios.shape[0]
         text_ids, text_mask = self._tokenize(batch.descriptions)
+        video_features = None
+        if batch.masked_video is not None:
+            video_features = self._encode_videos(batch.masked_video, t_frames,
+                                                 stride=int(visual_stride))
         latent_ch = 2 * cfg.audio_codec.codebook_dim
         if noise is None:
             noise = torch.randn((b * k, t_frames, latent_ch), generator=generator,
@@ -354,20 +400,24 @@ class SAMAudio:
             wavs = wavs.cpu().numpy()
             return [wavs[i, :sizes[i]] for i in range(b)]
 
-        rerank = k > 1 and self.text_ranker is not None
+        rerank = k > 1 and (self.text_ranker is not None or (
+            batch.masked_video is not None and self.visual_ranker is not None))
         if rerank and preview_nfe is not None:
             # rank on cheap previews, then the full solve of the winners only
             preview = separate_latents(*core_args, noise, cfg=cfg, candidates=k,
-                                       ode_method=method, ode_step_size=2.0 / preview_nfe)
+                                       ode_method=method, ode_step_size=2.0 / preview_nfe,
+                                       video_features=video_features)
             idxs = self._choose(batch, decode_channel_chunked(
                 self.params, preview, cfg=cfg, channel=0), sizes, k)[0]
             chosen = separate_latents(
                 *core_args, gather_candidates(noise, idxs, candidates=k), cfg=cfg,
-                candidates=1, ode_method=method, ode_step_size=float(step))
+                candidates=1, ode_method=method, ode_step_size=float(step),
+                video_features=video_features)
             target = trimmed(decode_channel(self.params, chosen, cfg=cfg, channel=0))
         else:
             latents = separate_latents(*core_args, noise, cfg=cfg, candidates=k,
-                                       ode_method=method, ode_step_size=float(step))
+                                       ode_method=method, ode_step_size=float(step),
+                                       video_features=video_features)
             if rerank:
                 # all k targets are decoded for the ranker; the residual only
                 # for the winner (the JAX package's lazy decode)
@@ -381,7 +431,8 @@ class SAMAudio:
         return SeparationResult(target=target, residual=residual, noise=noise)
 
     def _separate_long(self, batch, k: int, generator, preview_nfe, predict_spans: bool,
-                       limit_frames: int, ode_opt=None) -> SeparationResult:
+                       limit_frames: int, ode_opt=None,
+                       visual_stride: int = 1) -> SeparationResult:
         """A batch whose clips exceed the direct limit, through streaming.py's
         windows, one item at a time (reference model.py's direct path stops
         at its RoPE table, ~400 s). One base seed is drawn from `generator`;
@@ -408,7 +459,9 @@ class SAMAudio:
                 anchors=(list(batch.anchors[i])
                          if batch.anchors is not None and batch.anchors[i] else None),
                 reranking_candidates=k, seed=seed, item=i, preview_nfe=preview_nfe,
-                ode_opt=ode_opt)
+                masked_video=(batch.masked_video[i] if batch.masked_video is not None
+                              else None),
+                visual_stride=visual_stride, ode_opt=ode_opt)
             target.append(res.target[: sizes[i]])
             residual.append(res.residual[: sizes[i]])
         return SeparationResult(target=target, residual=residual, noise=None)
@@ -430,11 +483,28 @@ class SAMAudio:
         return idxs, [cands[i][idxs[i]] for i in range(b)]
 
     def _rerank_on_device(self, batch, tgt_dev, sizes, k: int):
-        """Scores the candidates without a host round trip when the text
-        ranker can (ClapRanker.score_on_device: clips within the 10 s CLAP
-        window at its sample rate; JudgeRanker.score_on_device: frame-aligned
-        clips at the judge's rate, with the mixtures). Returns the winners'
-        indices, or None for the host path."""
+        """Scores the candidates without a host round trip when the ranker
+        can (ClapRanker.score_on_device: clips within the 10 s CLAP window at
+        its sample rate; JudgeRanker.score_on_device: frame-aligned clips at
+        the judge's rate, with the mixtures; ImageBindRanker.score_on_device:
+        a batch with video whose candidates all have the decoded length,
+        since ImageBind's clip starts depend on the true duration). Returns
+        the winners' indices, or None for the host path."""
+        if batch.masked_video is not None and self.visual_ranker is not None:
+            r = self.visual_ranker
+            t_pad = int(tgt_dev.shape[-1])
+            if (hasattr(r, "supports_on_device") and all(int(s) == t_pad for s in sizes)
+                    and r.supports_on_device(sizes, self.sample_rate)):
+                scores = r.score_on_device(tgt_dev.reshape(len(sizes), k, -1), sizes,
+                                           batch.masked_video, sample_rate=self.sample_rate)
+                return [int(i) for i in torch.argmax(scores, dim=1).cpu()]
+            if not self._warned_visual_host:
+                logger.warning(
+                    "visual rerank: candidates of unequal or padded lengths (sizes %s, "
+                    "decoded length %d) are scored on the host path: ImageBind's clip starts "
+                    "depend on each candidate's true duration", list(sizes), t_pad)
+                self._warned_visual_host = True
+            return None
         r = self.text_ranker
         if r is None or not hasattr(r, "supports_on_device"):
             return None
@@ -449,6 +519,10 @@ class SAMAudio:
     def _rerank(self, batch, target, sizes, k: int):
         """Host path: target is per item a (k, T_i) array."""
         b = len(target)
+        if batch.masked_video is not None and self.visual_ranker is not None:
+            scores = self.visual_ranker(extracted_audio=target, videos=batch.masked_video,
+                                        sample_rate=self.sample_rate)
+            return [int(i) for i in np.argmax(np.asarray(scores), axis=1)]
         audios = np.asarray(batch.audios)
         # the mixture, zero-padded to the frame-rounded size of the targets
         mixes = [np.pad(audios[i, 0, :sizes[i]], (0, max(0, sizes[i] - audios.shape[-1])))
@@ -460,3 +534,10 @@ class SAMAudio:
         if batch.anchors is not None:
             kwargs["spans"] = batch.anchors
         return [int(i) for i in np.argmax(np.asarray(self.text_ranker(**kwargs)), axis=1)]
+
+    # -- optional towers --------------------------------------------------------
+
+    def _encode_videos(self, masked_videos, t_frames: int, stride: int = 1):
+        from sam_audio_tpu_torch.models.pe_clip import encode_videos
+
+        return encode_videos(self, masked_videos, t_frames, stride=stride)

@@ -1,11 +1,13 @@
-"""STFT / mel-spectrogram frontend of the CLAP audio tower.
+"""STFT / mel-spectrogram frontends; counterpart of sam_audio_tpu/ops/mel.py.
 
-Counterpart of the parts of sam_audio_tpu/ops/mel.py that HTSAT uses
-(torchaudio.transforms.MelSpectrogram numerics: reflect centre padding, a
-periodic Hann window, power spectrogram, HTK or Slaney mel scales). The
-filterbank is built on the host in float64 and cast once; the framing, FFT
-and filterbank product run on the tensors' device. The Kaldi fbank parts come
-with the ImageBind ranker.
+  * The CLAP audio tower's (torchaudio.transforms.MelSpectrogram numerics:
+    reflect centre padding, a periodic Hann window, power spectrogram, HTK
+    or Slaney mel scales): the filterbank is built on the host in float64 and
+    cast once; framing, FFT and filterbank product run on the tensors'
+    device.
+  * The ImageBind audio tower's Kaldi fbank (torchaudio.compliance.kaldi.fbank
+    with dither 0): `kaldi_fbank` in numpy float64 for the host path,
+    `kaldi_fbank_torch` batched on the tensors' device in float32.
 """
 
 from __future__ import annotations
@@ -107,3 +109,125 @@ def log_mel_spectrogram(x, amin: float = 1e-10, ref: float = 1.0,
     if top_db is not None:
         logmel = torch.maximum(logmel, torch.amax(logmel) - top_db)
     return logmel
+
+
+# ---------------------------------------------------------------------------
+# Kaldi-compatible fbank (torchaudio.compliance.kaldi.fbank numerics)
+# ---------------------------------------------------------------------------
+
+
+def _next_power_of_2(n: int) -> int:
+    return 1 if n == 0 else 2 ** (n - 1).bit_length()
+
+
+@lru_cache(maxsize=16)
+def kaldi_mel_banks(num_bins: int, padded_window_size: int, sample_freq: float,
+                    low_freq: float = 20.0, high_freq: float = 0.0) -> np.ndarray:
+    """Kaldi's mel filterbank, (num_bins, padded_window_size // 2 + 1): mel
+    scale 1127 ln(1 + f / 700), triangles on an even mel grid between
+    low_freq and high_freq (<= 0: an offset from Nyquist), evaluated at the
+    FFT bin frequencies; the Nyquist column is zero."""
+    num_fft_bins = padded_window_size // 2
+    nyquist = 0.5 * sample_freq
+    if high_freq <= 0.0:
+        high_freq = high_freq + nyquist
+    if not 0.0 <= low_freq < high_freq <= nyquist:
+        raise ValueError(f"bad mel range ({low_freq}, {high_freq}) for Nyquist {nyquist}")
+
+    def mel(f):
+        return 1127.0 * np.log(1.0 + np.asarray(f, np.float64) / 700.0)
+
+    mel_low, mel_high = mel(low_freq), mel(high_freq)
+    mel_delta = (mel_high - mel_low) / (num_bins + 1)
+    bins = np.arange(num_bins, dtype=np.float64)[:, None]
+    left, center, right = (mel_low + (bins + j) * mel_delta for j in (0.0, 1.0, 2.0))
+    freq_mel = mel(sample_freq / padded_window_size * np.arange(num_fft_bins))[None, :]
+    up = (freq_mel - left) / (center - left)
+    down = (right - freq_mel) / (right - center)
+    fb = np.maximum(0.0, np.minimum(up, down))
+    return np.pad(fb, ((0, 0), (0, 1))).astype(np.float32)
+
+
+def _kaldi_window(window_type: str, n: int, blackman_coeff: float = 0.42) -> np.ndarray:
+    """Kaldi's frame window (periodic=False: n - 1 denominators), float64."""
+    i = np.arange(n, dtype=np.float64)
+    if window_type == "hanning":
+        return 0.5 - 0.5 * np.cos(2.0 * np.pi * i / (n - 1))
+    if window_type == "hamming":
+        return 0.54 - 0.46 * np.cos(2.0 * np.pi * i / (n - 1))
+    if window_type == "povey":
+        return (0.5 - 0.5 * np.cos(2.0 * np.pi * i / (n - 1))) ** 0.85
+    if window_type == "rectangular":
+        return np.ones(n)
+    if window_type == "blackman":
+        a = 2.0 * np.pi / (n - 1)
+        return blackman_coeff - 0.5 * np.cos(a * i) + (0.5 - blackman_coeff) * np.cos(2.0 * a * i)
+    raise ValueError(f"unknown window_type {window_type}")
+
+
+def kaldi_fbank(waveform: np.ndarray, sample_frequency: float = 16000.0,
+                num_mel_bins: int = 128, frame_length: float = 25.0,
+                frame_shift: float = 10.0, window_type: str = "hanning",
+                low_freq: float = 20.0, high_freq: float = 0.0,
+                preemphasis_coefficient: float = 0.97,
+                remove_dc_offset: bool = True) -> np.ndarray:
+    """Kaldi log-mel fbank on the host, float64 inside (ImageBind's frontend,
+    reference sam_audio/ranking/imagebind.py:75-77): snip-edges framing,
+    per-frame DC removal, replicate-edge preemphasis, the periodic=False
+    window, zero padding to a power-of-two FFT, the power spectrum, Kaldi
+    mel banks, the natural log floored at float32 eps. Returns
+    (num_frames, num_mel_bins) float32; (0, num_mel_bins) for a signal
+    shorter than one window."""
+    wav = np.asarray(waveform, np.float64).reshape(-1)
+    shift = int(sample_frequency * frame_shift * 0.001)
+    size = int(sample_frequency * frame_length * 0.001)
+    padded = _next_power_of_2(size)
+    if len(wav) < size:
+        return np.zeros((0, num_mel_bins), np.float32)
+    m = 1 + (len(wav) - size) // shift
+    frames = wav[np.arange(m)[:, None] * shift + np.arange(size)[None, :]]
+    if remove_dc_offset:
+        frames = frames - frames.mean(axis=1, keepdims=True)
+    if preemphasis_coefficient != 0.0:
+        prev = np.concatenate([frames[:, :1], frames[:, :-1]], axis=1)
+        frames = frames - preemphasis_coefficient * prev
+    frames = frames * _kaldi_window(window_type, size)[None, :]
+    spectrum = np.abs(np.fft.rfft(frames, n=padded, axis=1)) ** 2
+    fb = kaldi_mel_banks(num_mel_bins, padded, float(sample_frequency), low_freq, high_freq)
+    mel = spectrum @ fb.T.astype(np.float64)
+    return np.log(np.maximum(mel, float(np.finfo(np.float32).eps))).astype(np.float32)
+
+
+def kaldi_fbank_torch(waveform: torch.Tensor, sample_frequency: float = 16000.0,
+                      num_mel_bins: int = 128, frame_length: float = 25.0,
+                      frame_shift: float = 10.0, window_type: str = "hanning",
+                      low_freq: float = 20.0, high_freq: float = 0.0,
+                      preemphasis_coefficient: float = 0.97,
+                      remove_dc_offset: bool = True) -> torch.Tensor:
+    """`kaldi_fbank` batched on the tensors' device in float32 (JAX:
+    kaldi_fbank_jax): (..., T) -> (..., num_frames, num_mel_bins) log-mel.
+    The same framing, DC removal, preemphasis, window and mel banks; the
+    power spectrum is the rfft of the zero-padded frame."""
+    wav = waveform.float()
+    t = wav.shape[-1]
+    shift = int(sample_frequency * frame_shift * 0.001)
+    size = int(sample_frequency * frame_length * 0.001)
+    padded = _next_power_of_2(size)
+    if t < size:
+        return wav.new_zeros(wav.shape[:-1] + (0, num_mel_bins))
+    m = 1 + (t - size) // shift
+    idx = torch.as_tensor(np.arange(m)[:, None] * shift + np.arange(size)[None, :],
+                          device=wav.device)
+    frames = wav[..., idx]                                      # (..., m, size)
+    if remove_dc_offset:
+        frames = frames - frames.mean(dim=-1, keepdim=True)
+    if preemphasis_coefficient != 0.0:
+        prev = torch.cat([frames[..., :1], frames[..., :-1]], dim=-1)
+        frames = frames - preemphasis_coefficient * prev
+    frames = frames * torch.as_tensor(_kaldi_window(window_type, size).astype(np.float32),
+                                      device=wav.device)
+    spec = torch.fft.rfft(frames, n=padded, dim=-1)
+    power = spec.real * spec.real + spec.imag * spec.imag
+    fb = kaldi_mel_banks(num_mel_bins, padded, float(sample_frequency), low_freq, high_freq)
+    mel = power @ torch.as_tensor(np.ascontiguousarray(fb.T), device=wav.device)
+    return torch.log(torch.clamp(mel, min=float(np.finfo(np.float32).eps)))

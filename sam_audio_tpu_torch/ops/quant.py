@@ -206,6 +206,33 @@ def quantize_peav_params(peav_params):
     return out
 
 
+_PE_LAYER_LINEARS = (
+    ("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
+    ("mlp", "fc1"), ("mlp", "fc2"),
+)
+
+
+def quantize_pe_params(pe_params):
+    """int8 for the PE-Core vision tower (models/pe_clip.py, layers stacked):
+    the ViT block linears run W8A8; the patch embed, cls / position tables,
+    norms, attention pool and output projection stay full precision."""
+    out = dict(pe_params)
+    out["layers"] = _quantize_groups(pe_params["layers"], _PE_LAYER_LINEARS)
+    return out
+
+
+def quantize_imagebind_params(ib_params):
+    """int8 for the ImageBind scorer: both branch trunks (PE-AV layout) run
+    W8A8; stems, cls / position tables, norms and heads stay full
+    precision."""
+    out = {}
+    for branch in ("audio", "vision"):
+        b = dict(ib_params[branch])
+        b["trunk"] = quantize_peav_params(b["trunk"])
+        out[branch] = b
+    return out
+
+
 def quantize_modernbert_params(mb_params):
     """int8 for the ModernBERT text tower (models/modernbert.py, layers a
     list)."""

@@ -1,7 +1,11 @@
 """Bandlimited sinc resampling in numpy, numerically equivalent to
 torchaudio.functional.resample defaults (sinc_interp_hann,
 lowpass_filter_width=6, rolloff=0.99), which the reference uses for all audio
-loading (reference: sam_audio/processor.py:29-31). Host-side preprocessing.
+loading (reference: sam_audio/processor.py:29-31).
+
+  * `resample_np` — numpy, host-side preprocessing.
+  * `resample`    — the same kernel as a strided conv1d on the tensors'
+    device (the ImageBind ranker's 48 kHz -> 16 kHz on the card).
 """
 
 from __future__ import annotations
@@ -10,6 +14,8 @@ import math
 from functools import lru_cache
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 
 @lru_cache(maxsize=64)
@@ -57,3 +63,22 @@ def resample_np(waveform: np.ndarray, orig_freq: int, new_freq: int,
     target_length = int(math.ceil(new_r * length / orig_r))
     out = out[:, :target_length]
     return out.reshape(*shape[:-1], target_length)
+
+
+def resample(waveform: torch.Tensor, orig_freq: int, new_freq: int,
+             lowpass_filter_width: int = 6, rolloff: float = 0.99) -> torch.Tensor:
+    """`resample_np` on the tensor's device: waveform (..., T) ->
+    (..., ceil(T * new / orig)), computed in float32, returned in the
+    input's dtype."""
+    if orig_freq == new_freq:
+        return waveform
+    kernels, width = _sinc_kernel(orig_freq, new_freq, lowpass_filter_width, rolloff)
+    g = math.gcd(int(orig_freq), int(new_freq))
+    orig_r, new_r = int(orig_freq) // g, int(new_freq) // g
+    shape = waveform.shape
+    length = shape[-1]
+    wav = F.pad(waveform.reshape(-1, 1, length).float(), (width, width + orig_r))
+    out = F.conv1d(wav, torch.as_tensor(kernels, device=wav.device), stride=orig_r)
+    out = out.transpose(1, 2).reshape(wav.shape[0], -1)       # interleave the phases
+    target_length = int(math.ceil(new_r * length / orig_r))
+    return out[:, :target_length].reshape(*shape[:-1], target_length).to(waveform.dtype)

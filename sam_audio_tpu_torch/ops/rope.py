@@ -3,8 +3,9 @@
 Counterpart of sam_audio_tpu/ops/rope.py:25-147. The DiT's q/k projection
 output channels are stored deinterleaved (rotary pair (2i, 2i+1) moved to
 (i, i + D/2)), so its rotation is two half-width multiplies
-(`apply_rope_half`). A PE-AV tower with rotary buffers rotates interleaved
-pairs (`apply_rope`). The tables are built in float64 numpy and stored as
+(`apply_rope_half`). A PE-AV tower with rotary buffers, and the PE-Core
+vision tower with `use_rope2d` (axial 2-D tables, `precompute_rope_2d`),
+rotate interleaved pairs (`apply_rope`). The tables are built in float64 numpy and stored as
 float32, exactly as the JAX package does.
 """
 
@@ -28,6 +29,25 @@ def precompute_rope(head_dim: int, max_seqlen: int, theta: float,
         torch.as_tensor(np.cos(angles).astype(np.float32), device=device),
         torch.as_tensor(np.sin(angles).astype(np.float32), device=device),
     )
+
+
+def precompute_rope_2d(head_dim: int, grid: int, theta: float = 10000.0,
+                       n_prefix_tokens: int = 0, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Axial 2-D RoPE tables for a (grid x grid) patch lattice (PE-Core's
+    vision attention; parameter-free). The first half of the rotary pairs
+    turns with the x coordinate, the second with y, each on the 1-D ladder
+    over head_dim / 2; prefix tokens (CLS) get angle 0. Returns (cos, sin),
+    each (n_prefix_tokens + grid * grid, head_dim // 2), float32."""
+    d_half = head_dim // 2
+    freqs = 1.0 / (theta ** (np.arange(0, d_half, 2).astype(np.float64) / d_half))
+    ang = np.outer(np.arange(grid, dtype=np.float64), freqs)   # (grid, d_half / 2)
+    ang_x = np.tile(ang[None, :, :], (grid, 1, 1))              # token (y, x)
+    ang_y = np.tile(ang[:, None, :], (1, grid, 1))
+    angles = np.concatenate([ang_x, ang_y], axis=-1).reshape(grid * grid, -1)
+    if n_prefix_tokens:
+        angles = np.concatenate([np.zeros((n_prefix_tokens, angles.shape[1])), angles])
+    return (torch.as_tensor(np.cos(angles).astype(np.float32), device=device),
+            torch.as_tensor(np.sin(angles).astype(np.float32), device=device))
 
 
 def apply_rope_half(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):

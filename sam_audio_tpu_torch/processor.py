@@ -1,9 +1,9 @@
 """Preprocessing frontend: files/arrays -> batched, masked numpy tensors.
 
-The text + audio + anchors path of the reference processor
-(sam_audio/processor.py:23-260): load/resample to 48 kHz, downmix to mono,
-right-pad to a batch, frame-index math (hop 1920 => 25 latent fps), anchor
-spans -> per-frame alignment tensors. Host-side numpy only; the model moves
+The reference processor (sam_audio/processor.py:23-260): load/resample to
+48 kHz, downmix to mono, right-pad to a batch, frame-index math (hop 1920 =>
+25 latent fps), anchor spans -> per-frame alignment tensors, one video frame
+per latent frame (`load_video`), video masking (`mask_videos`). Host-side numpy only; the model moves
 the arrays to its device. `SAMAudioJudgeProcessor` prepares the judge's
 (text, mixture, separated) inputs.
 
@@ -19,7 +19,7 @@ from __future__ import annotations
 import json
 import math
 import os
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -128,6 +128,29 @@ class Batch:
         self.anchors = anchors
 
 
+def load_video(sizes: np.ndarray, videos: Sequence[Union[str, np.ndarray]],
+               feature_to_wav_idx: Callable, audio_sampling_rate: int) -> List[np.ndarray]:
+    """One video frame per latent audio frame (reference:
+    sam_audio/processor.py:131-155): an array (N, C, H, W) takes frames
+    round(linspace(0, N - 1, size)); a file (ffmpeg, video_io) the frame
+    nearest each latent frame's time."""
+    all_frames = []
+    for size, video in zip(sizes, videos):
+        if isinstance(video, str):
+            from sam_audio_tpu_torch.video_io import decode_video_frames
+
+            frames, pts = decode_video_frames(video)
+            audio_ts = feature_to_wav_idx(np.arange(int(size))) / audio_sampling_rate
+            frames = frames[np.abs(audio_ts[None, :] - pts[:, None]).argmin(axis=0)]
+        else:
+            video = np.asarray(video)
+            if video.ndim != 4 or video.shape[1] != 3:
+                raise ValueError(f"expected video frames (N, 3, H, W), got {video.shape}")
+            frames = video[np.round(np.linspace(0, video.shape[0] - 1, int(size))).astype(int)]
+        all_frames.append(frames)
+    return all_frames
+
+
 class SAMAudioProcessor:
     def __init__(self, audio_hop_length: int, audio_sampling_rate: int):
         self.audio_hop_length = audio_hop_length
@@ -148,6 +171,23 @@ class SAMAudioProcessor:
             return np.ceil(wav_idx / self.audio_hop_length).astype(np.int64)
         return math.ceil(wav_idx / self.audio_hop_length)
 
+    def feature_to_wav_idx(self, feature_idx):
+        return feature_idx * self.audio_hop_length
+
+    def mask_videos(self, videos, masks) -> List[np.ndarray]:
+        """video * (mask == 0) per frame: pixels are kept where the mask is 0
+        (reference: sam_audio/processor.py:197-204). Either may be a file."""
+        out = []
+        for v, m in zip(videos, masks):
+            if isinstance(v, str) or isinstance(m, str):
+                from sam_audio_tpu_torch.video_io import decode_video_frames
+
+                v = decode_video_frames(v)[0] if isinstance(v, str) else v
+                m = decode_video_frames(m)[0] if isinstance(m, str) else m
+            v, m = np.asarray(v), np.asarray(m)
+            out.append(v * (m == 0))
+        return out
+
     def __call__(
         self,
         descriptions: List[str],
@@ -155,26 +195,29 @@ class SAMAudioProcessor:
         anchors: Optional[List[List[Anchor]]] = None,
         masked_videos=None,
     ) -> Batch:
-        """reference: sam_audio/processor.py:211-260."""
-        if masked_videos is not None:
-            raise NotImplementedError(
-                "masked_videos= (visual prompting) is not ported yet; it "
-                "comes with the visual slice (PE / ImageBind)."
-            )
+        """reference: sam_audio/processor.py:211-260. `masked_videos`: per
+        item the masked frames (N, C, H, W) (see `mask_videos`) or a video
+        file, mapped to one frame per latent frame."""
         assert len(descriptions) == len(audios)
         assert anchors is None or len(descriptions) == len(anchors)
+        assert masked_videos is None or len(descriptions) == len(masked_videos)
 
         audio_arr, wav_sizes = batch_audio(audios, self.audio_sampling_rate)
 
         sizes = self.wav_to_feature_idx(wav_sizes)
         t_feat = self.wav_to_feature_idx(int(audio_arr.shape[-1]))
         audio_pad_mask = mask_from_sizes(sizes, total=t_feat)
+        masked_video = None
+        if masked_videos is not None:
+            masked_video = load_video(sizes, masked_videos, self.feature_to_wav_idx,
+                                      self.audio_sampling_rate)
         return Batch(
             audios=audio_arr,
             sizes=sizes,
             descriptions=descriptions,
             audio_pad_mask=audio_pad_mask,
             anchors=anchors,
+            masked_video=masked_video,
             hop_length=self.audio_hop_length,
             audio_sampling_rate=self.audio_sampling_rate,
             wav_sizes=wav_sizes,
@@ -258,4 +301,4 @@ class SAMAudioJudgeProcessor:
 
 
 __all__ = ["SAMAudioProcessor", "SAMAudioJudgeProcessor", "Batch", "batch_audio",
-           "mask_from_sizes", "ANCHOR_VOCAB"]
+           "load_video", "mask_from_sizes", "ANCHOR_VOCAB"]

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Where the time of one text-prompted separate() goes, for the PyTorch port
-on one NVIDIA GPU (default SAMAudioConfig, random weights, bf16, k=1).
+"""Where the time of one separate() goes, for the PyTorch port on one NVIDIA
+GPU (default SAMAudioConfig, random weights, bf16, k=1).
 
     python3 -m sam_audio_tpu_torch.profile_separate [--seconds 10] [--bits 4|8]
-        [--candidates 8] [--trace out.json]
+        [--candidates 8] [--video] [--trace out.json]
 
 `--bits` quantizes the model first (SAMAudio.quantize); `--candidates k`
 profiles separate(reranking_candidates=k) with a CLAP ranker of random
-weights scoring on the card (the stage times stay those of k=1).
+weights scoring on the card (the stage times stay those of k=1). `--video`
+prompts with 25 masked frames a second of 360 x 640 through a PE-Core tower
+of the default PerceptionEncoderConfig (random, bf16; the model's video gate
+opened to 0.5): the stages gain `pe_encode_ms`, and a `pe_profile` line
+profiles the tower's encode alone.
 
 Prints, each as one JSON line:
   * `stages`: host-clock ms of each stage of separate() (codec encode, T5,
@@ -44,11 +48,37 @@ def _group(name: str) -> str:
     if ("fused_glue_attention" in n or "flash_attention" in n or "res_unit" in n
             or "int4_" in n):
         return "port kernels"
-    if "gemm" in n or "gemv" in n or "cutlass" in n or "matmul" in n or "xmma" in n:
+    if ("gemm" in n or "gemv" in n or "cutlass" in n or "matmul" in n or "xmma" in n
+            or "nvjet" in n):   # cuBLAS's nvjet kernels are products too
         return "matrix products"
     if "conv" in n or "cudnn" in n or "implicit" in n or "winograd" in n:
         return "convolutions"
     return "other (elementwise, reductions, copies)"
+
+
+def _profile(fn):
+    """fn() once under torch.profiler: wall ms, device busy ms, idle share,
+    launches, device ms by group and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = _ms(fn)
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")
+               and getattr(e, "self_device_time_total", 0) > 0]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    groups = {}
+    for e in kernels:
+        g = groups.setdefault(_group(e.key), {"ms": 0.0, "launches": 0})
+        g["ms"] += e.self_device_time_total / 1e3
+        g["launches"] += e.count
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    return prof, {"wall_ms": wall, "device_busy_ms": busy_us / 1e3,
+                  "device_idle_share": max(0.0, 1 - busy_us / 1e3 / wall),
+                  "kernel_launches": sum(e.count for e in kernels), "groups": groups,
+                  "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                           "launches": e.count} for e in top]}
 
 
 def main() -> int:
@@ -59,6 +89,7 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=10.0)
     ap.add_argument("--bits", type=int, choices=(4, 8), default=None)
     ap.add_argument("--candidates", type=int, default=1)
+    ap.add_argument("--video", action="store_true", help="a masked video prompt (PE tower)")
     ap.add_argument("--trace", default=None, help="write a chrome trace here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -91,7 +122,17 @@ def main() -> int:
     rng = np.random.RandomState(0)
     wav = (0.3 * np.sin(2 * np.pi * 440 * np.arange(n) / cfg.audio_codec.sample_rate)
            + 0.05 * rng.randn(n)).astype(np.float32)
-    batch = proc(descriptions=["a dog barking"], audios=[wav])
+    masked = None
+    if args.video:
+        from sam_audio_tpu_torch.models.pe_clip import PerceptionEncoder
+
+        model.params["align_masked_video"]["gate"].fill_(0.5)
+        model.vision_encoder = PerceptionEncoder.init_random(cfg.vision_encoder, seed=0)
+        frames = rng.randint(0, 256, (int(args.seconds * 25), 3, 360, 640), dtype=np.uint8)
+        mask = np.zeros_like(frames)
+        mask[:, :, 90:270, 213:427] = 1
+        masked = proc.mask_videos([frames], [mask])
+    batch = proc(descriptions=["a dog barking"], audios=[wav], masked_videos=masked)
     gen = torch.Generator(device="cuda").manual_seed(0)
     k = args.candidates
     model.separate(batch, generator=gen, reranking_candidates=k)  # warm-up (plans)
@@ -110,7 +151,11 @@ def main() -> int:
         lat = lat.transpose(1, 2).float()
         feats = torch.cat([lat, lat], 2)
         t = feats.shape[1]
-        video = torch.zeros((1, cfg.vision_encoder.dim, t), device=dev)
+        if args.video:
+            video, stages["pe_encode_ms"] = _ms(lambda: model._encode_videos(
+                batch.masked_video, t))
+        else:
+            video = torch.zeros((1, cfg.vision_encoder.dim, t), device=dev)
         aids = torch.as_tensor(batch.anchor_ids, dtype=torch.long, device=dev)
         align = torch.as_tensor(batch.anchor_alignment, dtype=torch.long, device=dev)
         pad = torch.as_tensor(batch.audio_pad_mask, device=dev)
@@ -129,28 +174,13 @@ def main() -> int:
     stages["sum_ms"] = sum(stages.values())
     print(json.dumps({"stages": stages}), flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = _ms(lambda: model.separate(batch, generator=gen, reranking_candidates=k))
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and str(e.device_type).endswith("CUDA")
-               and getattr(e, "self_device_time_total", 0) > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    groups = {}
-    for e in kernels:
-        g = groups.setdefault(_group(e.key), {"ms": 0.0, "launches": 0})
-        g["ms"] += e.self_device_time_total / 1e3
-        g["launches"] += e.count
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-    print(json.dumps({"profile": {
-        "bits": args.bits, "candidates": k, "wall_ms": wall, "device_busy_ms": busy_us / 1e3,
-        "device_idle_share": max(0.0, 1 - busy_us / 1e3 / wall),
-        "kernel_launches": sum(e.count for e in kernels),
-        "groups": groups,
-        "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
-                 "launches": e.count} for e in top]}}), flush=True)
+    prof, rec = _profile(lambda: model.separate(batch, generator=gen, reranking_candidates=k))
+    print(json.dumps({"profile": {"bits": args.bits, "candidates": k, "video": args.video,
+                                  **rec}}), flush=True)
+    if args.video:
+        with torch.inference_mode():
+            _, pe = _profile(lambda: model._encode_videos(batch.masked_video, t))
+        print(json.dumps({"pe_profile": pe}), flush=True)
     if args.trace:
         prof.export_chrome_trace(args.trace)
     return 0

@@ -1,6 +1,5 @@
-"""Ranker factory (reference: sam_audio/ranking/__init__.py:15-30). The port
-has the CLAP, judge, sound-activity and ensemble rankers; ImageBind comes
-with the visual slice."""
+"""Ranker factory (reference: sam_audio/ranking/__init__.py:15-30): the CLAP,
+judge, ImageBind, sound-activity and ensemble rankers."""
 
 from __future__ import annotations
 
@@ -20,8 +19,8 @@ from sam_audio_tpu_torch.ranking.ranker import EnsembleRanker, Ranker
 def create_ranker(config: Optional[RankerConfig], allow_random: bool = False,
                   device="cuda") -> Optional[Ranker]:
     """Build a ranker from its config on `device`. `allow_random=True`
-    (tests, benchmarks) lets a weightless CLAP config use random weights
-    instead of raising. A judge loads its snapshot directory
+    (tests, benchmarks) lets a weightless CLAP or ImageBind config use random
+    weights instead of raising. A judge loads its snapshot directory
     (`checkpoint_or_model_id`) at first use."""
     if config is None:
         return None
@@ -38,8 +37,9 @@ def create_ranker(config: Optional[RankerConfig], allow_random: bool = False,
 
         return JudgeRanker(config, device=device)
     if isinstance(config, ImageBindRankerConfig):
-        raise NotImplementedError(
-            "the 'imagebind' ranker is not ported yet (the visual slice)")
+        from sam_audio_tpu_torch.ranking.imagebind import ImageBindRanker
+
+        return ImageBindRanker(config, allow_random=allow_random, device=device)
     if isinstance(config, EnsembleRankerConfig):
         rankers, weights = [], []
         for _, (sub, weight) in config.items():

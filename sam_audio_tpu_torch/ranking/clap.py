@@ -57,8 +57,9 @@ class ClapRanker(Ranker):
             else:
                 raise ValueError(
                     "ClapRanker has no weights: ClapRankerConfig.checkpoint is empty "
-                    "(convert a laion_clap checkpoint with the JAX package's "
-                    "`scripts/convert_checkpoint.py clap` and set checkpoint=). The "
+                    "(convert a laion_clap checkpoint with `python -m "
+                    "sam_audio_tpu_torch.convert clap --torch 630k-best.pt --out "
+                    "clap.npz` and set checkpoint=). The "
                     "reference always loads real ranker weights "
                     "(sam_audio/ranking/clap.py:16-19); pass allow_random=True only "
                     "for tests.")

@@ -18,6 +18,10 @@ class Ranker(ABC):
     def __call__(self, **kwargs) -> np.ndarray:
         """Returns scores of shape (batch_size, num_candidates)."""
 
+    def forward(self, **kwargs) -> np.ndarray:
+        """torch-style alias of __call__ (reference ranker.py:16-18)."""
+        return self(**kwargs)
+
 
 class EnsembleRanker(Ranker):
     """The weighted sum of the members' scores (reference: ranker.py:22-36).

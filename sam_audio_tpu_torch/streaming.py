@@ -14,6 +14,11 @@ calls with equally seeded generators give the same bits. (The JAX package
 folds the window index into one PRNG key; torch cannot reproduce that
 stream.)
 
+Video: the masked frames of the whole clip (any frame rate) are mapped to
+the clip's latent frames by the nearest-frame map of processor.load_video,
+from the GLOBAL latent frame (the identity when the video has one frame per
+latent frame), and each window is conditioned on its own slice.
+
 Two things of the JAX module exist only for XLA and are not carried over:
 the pinning of the anchor-slot width across groups, and the padding of the
 last group to `batch_windows` windows. The last group is solved at its true
@@ -78,19 +83,19 @@ def separate_streaming(model, description: str, audio: np.ndarray, window_s: flo
                        generator: Optional[torch.Generator] = None,
                        seed: Optional[int] = None, item: int = 0, batch_windows: int = 1,
                        preview_nfe: Optional[int] = None, masked_video=None,
+                       visual_stride: int = 1,
                        ode_opt: Optional[dict] = None) -> StreamingResult:
     """audio: (T,) or (channels, T) at model.sample_rate. Returns the
     full-length target and residual. Anchors are in absolute seconds and
-    are clipped to each window.
+    are clipped to each window. `masked_video` (optional): the masked
+    frames (N, C, H, W) of the whole clip; `visual_stride` passes through to
+    separate().
 
     The window noise derives from `seed` and `item`; without a seed, one is
     drawn from `generator`. `batch_windows` > 1 solves that many windows per
     separate() call. One worker thread preprocesses and solves group g+1
     while this thread blends group g; group 0 runs on this thread first, so
     the kernels are built once, before the worker starts."""
-    if masked_video is not None:
-        raise NotImplementedError("streaming with masked_video (visual prompting) is not "
-                                  "ported yet (the visual slice)")
     sr, hop = model.sample_rate, model.hop_length
     processor = SAMAudioProcessor(audio_hop_length=hop, audio_sampling_rate=sr)
     wav = np.asarray(audio, np.float32)
@@ -105,17 +110,19 @@ def separate_streaming(model, description: str, audio: np.ndarray, window_s: flo
     k = int(reranking_candidates)
     latent_ch = 2 * model.cfg.audio_codec.codebook_dim
 
-    def solve(windows, chunks, window_anchors):
+    def solve(windows, chunks, window_anchors, window_videos=None):
         batch = processor(descriptions=[description] * len(chunks), audios=chunks,
-                          anchors=window_anchors)
+                          anchors=window_anchors, masked_videos=window_videos)
         t_frames = batch.anchor_alignment.shape[-1]
         noise = torch.cat([_window_noise(seed, item, i, (k, t_frames, latent_ch), model.device)
                            for i in windows])
         return model.separate(batch, reranking_candidates=k, noise=noise,
-                              preview_nfe=preview_nfe, ode_opt=ode_opt)
+                              preview_nfe=preview_nfe, visual_stride=visual_stride,
+                              ode_opt=ode_opt)
 
     if total <= win:
-        res = solve([0], [wav[None]], [anchors] if anchors else None)
+        res = solve([0], [wav[None]], [anchors] if anchors else None,
+                    [masked_video] if masked_video is not None else None)
         return StreamingResult(res.target[0], res.residual[0], 1)
 
     n_windows = 1 + math.ceil((total - win) / stride)
@@ -126,13 +133,26 @@ def separate_streaming(model, description: str, audio: np.ndarray, window_s: flo
         return [(tok, max(a, s0) - s0, min(b, s1) - s0) for tok, a, b in anchors
                 if min(b, s1) > max(a, s0)]
 
+    fmap = None
+    if masked_video is not None:
+        mv = np.asarray(masked_video)
+        total_f = -(-total // hop)   # latent frames of the whole clip
+        fmap = (np.arange(total_f) if mv.shape[0] == total_f else
+                np.round(np.linspace(0, mv.shape[0] - 1, total_f)).astype(int))
+
+    def window_video(start: int):
+        """The frames of the window's latent frames, by the global map."""
+        f0 = start // hop
+        return mv[fmap[np.minimum(np.arange(f0, f0 + win // hop), len(fmap) - 1)]]
+
     def run_group(g0: int):
         """Preprocess and solve windows g0 .. g0 + bw - 1 (the last group
         at its true size)."""
         group = list(range(g0, min(g0 + bw, n_windows)))
         starts = [min(i * stride, total - win) for i in group]
         res = solve(group, [wav[s: s + win][None] for s in starts],
-                    [clip_anchors(s) for s in starts] if anchors else None)
+                    [clip_anchors(s) for s in starts] if anchors else None,
+                    [window_video(s) for s in starts] if fmap is not None else None)
         return group, starts, res
 
     out_t = np.zeros(total, np.float32)

@@ -362,3 +362,77 @@ def test_cuda_small_model_streams_like_the_cpu(cuda, monkeypatch):
                  (out["gpu"].residual[0], out["cpu"].residual[0])):
         assert a.shape == b.shape == (3200,) and np.isfinite(a).all()
         np.testing.assert_allclose(a, b, rtol=0, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_small_visual_separate_like_the_cpu(cuda):
+    """A small fp32 model with a narrow PE tower and a masked video (k=1) on
+    the card (kernels 1 and 3, the tower's cuBLAS products) and on the CPU
+    with the same weights and noise."""
+    import numpy as np
+
+    from sam_audio_tpu_torch import SAMAudio, SAMAudioProcessor
+    from sam_audio_tpu_torch.config import (
+        DACVAEConfig, PerceptionEncoderConfig, SAMAudioConfig, T5EncoderConfig,
+        TransformerConfig)
+    from sam_audio_tpu_torch.models.pe_clip import PerceptionEncoder
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+    from sam_audio_tpu_torch.utils import tree_map
+
+    pe_cfg = PerceptionEncoderConfig(dim=64, width=64, vit_layers=2, vit_heads=2, image_size=56)
+    cfg = SAMAudioConfig(
+        in_channels=96,
+        audio_codec=DACVAEConfig(encoder_dim=32, encoder_rates=(2, 4), latent_dim=64,
+                                 decoder_dim=128, decoder_rates=(4, 2), codebook_dim=16,
+                                 sample_rate=8000),
+        text_encoder=T5EncoderConfig(dim=64, num_layers=2, num_heads=4, head_dim=16, d_ff=128,
+                                     vocab_size=512),
+        vision_encoder=pe_cfg,
+        transformer=TransformerConfig(dim=256, n_heads=2, n_layers=2, dropout=0.0,
+                                      context_dim=256, max_positions=2048,
+                                      frequency_embedding_dim=64, out_channels=32),
+        span_predictor=None, compute_dtype="float32")
+    tok = ByteFallbackTokenizer(512)
+    gpu = SAMAudio.init_random(cfg, seed=0, device=cuda, tokenizer=tok)
+    gpu.params["align_masked_video"]["gate"].fill_(0.5)   # 0 at init: the video would be inert
+    gpu.vision_encoder = PerceptionEncoder.init_random(pe_cfg, seed=1, device=cuda,
+                                                       compute_dtype=torch.float32)
+    cpu = SAMAudio(cfg, tree_map(lambda x: x.cpu(), gpu.params), device="cpu", tokenizer=tok,
+                   vision_encoder=PerceptionEncoder(
+                       pe_cfg, tree_map(lambda x: x.cpu(), gpu.vision_encoder.params),
+                       device="cpu", compute_dtype=torch.float32))
+    rng = np.random.RandomState(0)
+    wav = (0.3 * np.sin(np.arange(1600) * 0.05) + 0.05 * rng.randn(1600)).astype(np.float32)
+    proc = SAMAudioProcessor(8, 8000)
+    video = rng.randint(0, 256, (37, 3, 90, 160)).astype(np.uint8)
+    mask = (rng.rand(*video.shape) > 0.5).astype(np.uint8)
+    batch = proc(descriptions=["a tone"], audios=[wav[None]],
+                 masked_videos=proc.mask_videos([video], [mask]))
+    noise = rng.randn(1, 200, 32).astype(np.float32)
+    n1, n3 = fused_glue_attention.launches, fused_residual_unit.launches
+    a = gpu.separate(batch, noise=noise)
+    assert fused_glue_attention.launches - n1 == 2 * 32
+    assert fused_residual_unit.launches - n3 == 18
+    b = cpu.separate(batch, noise=noise)
+    for x, y in ((a.target[0], b.target[0]), (a.residual[0], b.residual[0])):
+        assert x.shape == y.shape == (1600,) and np.isfinite(x).all()
+        np.testing.assert_allclose(x, y, rtol=0, atol=2e-3)
+
+
+def test_cuda_is_refused_without_a_gpu(monkeypatch):
+    """With no GPU, asking for the card raises for the PE tower and the
+    ImageBind ranker alike (no silent CPU path). Runs anywhere: the missing
+    GPU is simulated."""
+    from sam_audio_tpu_torch.config import ImageBindRankerConfig, PerceptionEncoderConfig
+    from sam_audio_tpu_torch.models.pe_clip import PerceptionEncoder
+    from sam_audio_tpu_torch.ranking import create_ranker
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = PerceptionEncoderConfig(dim=8, width=16, vit_layers=1, vit_heads=2, image_size=28)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PerceptionEncoder.init_random(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PerceptionEncoder(cfg, {}, device="cuda")
+    ranker = create_ranker(ImageBindRankerConfig(), allow_random=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ranker.model

@@ -123,10 +123,12 @@ def test_create_ranker_for_each_kind():
         device="cpu")
     assert isinstance(ens, EnsembleRanker) and ens.weights == [1.0, 0.5]
     assert [type(r) for r in ens.rankers] == [JudgeRanker, tsa.SoundActivityRanker]
-    with pytest.raises(NotImplementedError, match="visual slice"):
-        create_ranker(ImageBindRankerConfig())
-    with pytest.raises(NotImplementedError, match="visual slice"):
-        create_ranker(EnsembleRankerConfig(rankers=(("ib", (ImageBindRankerConfig(), 1.0)),)))
+    from sam_audio_tpu_torch.ranking.imagebind import ImageBindRanker
+
+    assert isinstance(create_ranker(ImageBindRankerConfig(), device="cpu"), ImageBindRanker)
+    ens = create_ranker(EnsembleRankerConfig(rankers=(("ib", (ImageBindRankerConfig(), 1.0)),)),
+                        allow_random=True, device="cpu")
+    assert isinstance(ens.rankers[0], ImageBindRanker) and ens.rankers[0].allow_random
 
 
 class Spy:

@@ -110,11 +110,9 @@ def test_ranker_configs_and_validation(tmp_path):
         SoundActivityRankerConfig,
     )
 
-    # ImageBind comes with the visual slice; the others are ported
-    # (tests/test_torch_rankers.py)
-    with pytest.raises(NotImplementedError, match="visual slice"):
-        create_ranker(ImageBindRankerConfig())
-    for c in (JudgeRankerConfig(), SoundActivityRankerConfig(), EnsembleRankerConfig()):
+    # every kind is ported (tests/test_torch_rankers.py, tests/test_torch_imagebind.py)
+    for c in (ImageBindRankerConfig(), JudgeRankerConfig(), SoundActivityRankerConfig(),
+              EnsembleRankerConfig()):
         assert create_ranker(c, device="cpu") is not None
     assert create_ranker(None) is None
     weightless = create_ranker(ClapRankerConfig(), device="cpu")

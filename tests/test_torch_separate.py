@@ -142,9 +142,13 @@ def test_tokenizer_ids_and_text_padding(tmp_path):
 def test_unported_options_raise(tmp_path):
     cfg, _, tm = _snapshot(tmp_path)
     batch = _batch(cfg, SAMAudioProcessor)
-    for kwargs in ({"predict_spans": True}, {"visual_stride": 2}):
-        with pytest.raises(NotImplementedError):
-            tm.separate(batch, **kwargs)
+    with pytest.raises(NotImplementedError):
+        tm.separate(batch, predict_spans=True)
+    # visual_stride is ported: without a video it changes nothing
+    noise = np.random.RandomState(0).randn(2, batch.anchor_alignment.shape[-1], 8).astype(
+        np.float32)
+    np.testing.assert_array_equal(tm.separate(batch, noise=noise, visual_stride=2).target[0],
+                                  tm.separate(batch, noise=noise).target[0])
     # preview_nfe is ported: without a ranker it is ignored, as in JAX
     assert np.isfinite(tm.separate(batch, reranking_candidates=2, preview_nfe=8,
                                    generator=torch.Generator().manual_seed(0)).target[0]).all()
@@ -152,10 +156,11 @@ def test_unported_options_raise(tmp_path):
     streamed = tm.separate(batch, max_direct_seconds=0.001,
                            generator=torch.Generator().manual_seed(0))
     assert streamed.noise is None and np.isfinite(streamed.target[0]).all()
+    # masked videos are ported (tests/test_torch_visual.py): one frame a latent frame
     proc = SAMAudioProcessor(cfg.audio_codec.hop_length, cfg.audio_codec.sample_rate)
-    with pytest.raises(NotImplementedError, match="visual"):
-        proc(descriptions=["x"], audios=[np.zeros(8, np.float32)],
-             masked_videos=[np.zeros((1, 3, 4, 4), np.uint8)])
+    vb = proc(descriptions=["x"], audios=[np.zeros(8, np.float32)],
+              masked_videos=[np.zeros((1, 3, 4, 4), np.uint8)])
+    assert vb.masked_video[0].shape == (1, 3, 4, 4)
 
 
 def test_separate_draws_noise_from_generator(tmp_path):

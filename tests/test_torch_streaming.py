@@ -138,8 +138,10 @@ def test_predict_spans_past_the_limit_raises(tmp_path):
     cfg, _, tm = _pair(tmp_path)
     with pytest.raises(ValueError, match="predict_spans"):
         tm.separate(_long_batch(), predict_spans=True, max_direct_seconds=0.012)
-    with pytest.raises(NotImplementedError, match="visual"):
-        streaming.separate_streaming(tm, "x", _wav(200), masked_video=np.zeros((1, 3, 4, 4)))
+    # a masked video streams with its clip (tests/test_torch_visual.py holds it against JAX)
+    res = streaming.separate_streaming(tm, "x", _wav(200), seed=0,
+                                       masked_video=np.zeros((1, 3, 4, 4), np.uint8), **WINDOW)
+    assert res.num_windows == 3 and res.target.shape == (200,) and np.isfinite(res.target).all()
 
 
 def test_window_noise_independent_of_grouping_and_reproducible(tmp_path):
