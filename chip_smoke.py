@@ -65,6 +65,29 @@ Phases (any failure exits non-zero):
  13. visual stream — a 30 s clip with 750 frames past max_direct_seconds=10
                (4 windows) at streaming_batch_windows 1 and 4; the two
                targets must agree.
+ 14. spans   — main's weights with a PEAudioFrame span predictor of the
+               default config (24 x 1024, 16 heads; random, seed 0, fp32 as
+               the loader builds it; its head's bias set so that some
+               frames are active):
+               separate(k=1, predict_spans=True) on the 10 s clip counted
+               (kernel 1: 512, kernel 3: 36 + 12 for the predictor's encode)
+               and timed on fresh batches, the predictor timed alone; with one
+               injected noise it must equal separate() of the batch anchored at
+               the predicted spans, bit for bit.
+ 15. serve   — main's model behind a ContinuousBatcher (max_batch 4, 2 s
+               buckets, 50 ms wait, max_seconds 10, long_policy "stream" up to
+               40 s) and a SeparationServer on 127.0.0.1:0, warmed at 6 and
+               10 s: 8 concurrent requests (6 and 10 s; one a 44.1 kHz WAV),
+               a 30 s request (streamed), a 45 s one (413), a malformed body
+               (400); /v1/stats must show 9 served, 1 streamed, 0 failed, and
+               kernel 1 launch 512 per group and per window. Then the same 8
+               through SeparationPipeline.run.
+Phase 4 also attaches a narrow native span predictor to the small model:
+logits card vs CPU (2e-3), the same spans with no frame within 1e-3 of the
+threshold, separate(predict_spans=True) on both; its snapshot with
+span_predictor/ reloaded on the card, and `python -m
+sam_audio_tpu_torch.separate_cli --device cuda --predict-spans --seed 0` on
+it against the in-process separate (one 16-bit step).
 Each path is driven with the launch counts set to 0 just before it and read
 just after; each must launch exactly the kernels its shapes select.
 The second-to-last line is the `{"kernels": [...]}` record, the last line
@@ -587,6 +610,7 @@ def small_agreement():
         compare(frames, "exact")
     small_streaming(cfg, gpu, cpu, proc)
     small_visual(cfg, gpu, cpu, proc, tok)
+    small_spans(cfg, gpu, cpu, proc)
     gpu.quantize(4)
     cpu.quantize(4)
     counts = compare(200, "quantize(bits=4)")
@@ -727,6 +751,129 @@ def small_visual(cfg, gpu, cpu, proc, tok):
     log(f"  save_pretrained -> load_sam_audio on the card: separate bit-identical: {same}")
     require(same, "small: the reloaded snapshot does not separate bit-identically")
     gpu.vision_encoder = cpu.vision_encoder = None
+
+
+SPAN_MARGIN = 1e-3
+
+
+def small_spans(cfg, gpu, cpu, proc):
+    """A narrow native SpanPredictor (fp32) on the small model: its logits on
+    the card against the CPU (2e-3), the same spans with no valid frame within
+    1e-3 of the threshold, and separate(predict_spans=True) on both with the
+    same noise; then the small snapshot with span_predictor/ reloaded onto the
+    card, and the command line on it against the in-process separate."""
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch.audio_io import read_wav, write_wav
+    from sam_audio_tpu_torch.checkpoint import load_sam_audio, save_span_predictor
+    from sam_audio_tpu_torch.models.init import center_span_head
+    from sam_audio_tpu_torch.models.span_predictor import SpanPredictor, SpanPredictorConfig
+    from sam_audio_tpu_torch.processor import SAMAudioProcessor
+    from sam_audio_tpu_torch.utils import tree_map
+
+    sp_cfg = SpanPredictorConfig(audio_dim=cfg.audio_codec.codebook_dim,
+                                 text_dim=cfg.text_encoder.dim, hidden=64, n_layers=2,
+                                 n_heads=4, min_duration_s=0.005)
+    gpu.span_predictor = SpanPredictor.init_random(sp_cfg, seed=1, device=DEVICE)
+    cpu.span_predictor = SpanPredictor(sp_cfg, tree_map(lambda x: x.cpu(),
+                                                        gpu.span_predictor.params))
+    # open the anchor gate (0 at init: the spans would be inert); set back at the end
+    gates = [m.params["embed_anchors"]["gate"] for m in (gpu, cpu)]
+    saved = [g.clone() for g in gates]
+    for g in gates:
+        g.fill_(0.5)
+    frames = 200
+    n = frames * cfg.audio_codec.hop_length
+    descs = ["a dog barking", "rain"]
+    wavs = [mixture(n, 8000, 12), mixture(n * 3 // 4, 8000, 13)]
+    def fresh():
+        return proc(descriptions=descs, audios=wavs)
+
+    b0 = fresh()
+    mask = np.asarray(b0.audio_pad_mask)
+    audios = torch.as_tensor(b0.audios)
+    # a random head's logits lie close together: scale it by 20 and centre
+    # its bias on the CPU's logits, in both copies
+    center_span_head((gpu.span_predictor, cpu.span_predictor),
+                     cpu.span_predictor.logits(cpu, b0, audios).numpy(), mask, scale=20.0)
+    reset_counts()
+    lg = gpu.span_predictor.logits(gpu, b0, audios.to(DEVICE)).cpu()
+    counts = read_counts()
+    ref = cpu.span_predictor.logits(cpu, b0, audios)
+    err = float((lg - ref).abs().max())
+    probs = torch.sigmoid(ref).numpy()
+    margin = float(np.abs(probs - sp_cfg.threshold)[mask].min())
+    log(f"[small] native span predictor ({sp_cfg.n_layers} x {sp_cfg.hidden}, fp32): logits "
+        f"max |gpu - cpu| {err:.3e}; nearest valid frame {margin:.3e} from the threshold; "
+        f"launches {counts}")
+    require(err <= 2e-3, f"small spans: logits disagree ({err:.3e} > 2e-3)")
+    require(margin >= SPAN_MARGIN, f"small spans: a frame lies {margin:.2e} from the threshold")
+    require(counts["fused_residual_unit"] == 3 * len(cfg.audio_codec.encoder_rates),
+            f"small spans: the predictor's encode launched {counts}")
+    noise = np.random.RandomState(14).randn(2, frames, 2 * cfg.audio_codec.codebook_dim
+                                            ).astype(np.float32)
+    bg, bc = fresh(), fresh()
+    a = gpu.separate(bg, noise=noise, predict_spans=True)
+    b = cpu.separate(bc, noise=noise, predict_spans=True)
+    log(f"  predicted spans (card) {bg.anchors}")
+    require(bg.anchors == bc.anchors, "small spans: card and CPU spans differ")
+    require(any(bg.anchors), "small spans: no span predicted")
+    worst = max(float(np.abs(x - y).max()) for x, y in ((a.target[0], b.target[0]),
+                                                        (a.residual[1], b.residual[1])))
+    log(f"  separate(predict_spans=True): max |gpu - cpu| = {worst:.3e}")
+    require(worst <= 2e-3, f"small spans: card and CPU disagree ({worst:.3e} > 2e-3)")
+
+    snap = os.path.join(HERE, "build", "small_snapshot")
+    gpu.save_pretrained(snap)
+    save_span_predictor(snap, gpu.span_predictor)
+    loaded = load_sam_audio(snap, device=DEVICE, allow_random_towers=True)
+    require(isinstance(loaded.span_predictor, SpanPredictor),
+            "small spans: the reloaded snapshot has no native span predictor")
+    bl = fresh()
+    c = loaded.separate(bl, noise=noise, predict_spans=True)
+    same = bl.anchors == bg.anchors and all(
+        np.array_equal(x, y) for x, y in ((a.target[0], c.target[0]), (a.residual[1], c.residual[1])))
+    log(f"  snapshot with span_predictor/ reloaded on the card: bit-identical: {same}")
+    require(same, "small spans: the reloaded snapshot does not separate bit-identically")
+
+    work = os.path.join(HERE, "build", "small_cli")
+    os.makedirs(work, exist_ok=True)
+    mix = os.path.join(work, "mix.wav")
+    write_wav(mix, wavs[0], 8000)
+    env = {**os.environ, "PYTHONPATH": HERE}
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "sam_audio_tpu_torch.separate_cli", "-p", snap, "-i", mix,
+         "-d", descs[0], "-o", work, "--device", DEVICE, "--predict-spans", "--seed", "0",
+         "--allow-random-towers"], cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    require(run.returncode == 0, f"separate_cli failed: {run.stderr[-2000:]}")
+    batch = SAMAudioProcessor.from_pretrained(snap)(descriptions=[descs[0]], audios=[mix])
+    # the command line runs with PyTorch's TF32 defaults (cuDNN may use TF32,
+    # cuBLAS may not), which this script turns off: compare under the same
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        res = loaded.separate(batch, predict_spans=True,
+                              generator=torch.Generator(device=DEVICE).manual_seed(0))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    worst = 0.0
+    for name, want in (("target", res.target[0]), ("residual", res.residual[0])):
+        write_wav(os.path.join(work, f"want_{name}.wav"), want, 8000)
+        got, sr = read_wav(os.path.join(work, f"{name}.wav"))
+        ref_wav, _ = read_wav(os.path.join(work, f"want_{name}.wav"))
+        require(sr == 8000 and got.shape == ref_wav.shape, f"separate_cli: {name} shape")
+        worst = max(worst, float(np.abs(got - ref_wav).max()))
+    log(f"  separate_cli --device {DEVICE} --predict-spans --seed 0 ({cli_s:.1f} s of "
+        f"process; it printed {run.stdout.strip().splitlines()}): max |cli - in-process| over "
+        f"both WAVs {worst:.3e} (one 16-bit step: {2 ** -15:.3e})")
+    require(worst <= 2 ** -15, "separate_cli: its WAVs differ from the in-process separate "
+            "by more than one 16-bit step")
+    gpu.span_predictor = cpu.span_predictor = None
+    for g, v in zip(gates, saved):
+        g.copy_(v)
 
 
 def kernel_wrappers():
@@ -1371,6 +1518,329 @@ def visual_stream_phase(cfg, tok, proc, n_layers, nfe, seed):
             "snr_db_bw4_vs_bw1": snr}
 
 
+def spans_phase(cfg, tok, proc, n_layers, nfe):
+    """separate(k=1, predict_spans=True) at full width: main's model (seed 0,
+    bf16; its anchor gate opened to 0.5 for this phase) with a PEAudioFrame
+    span predictor of the default config (24 x 1024, 16 heads, vocab 50,368;
+    random, seed 0) in fp32, as checkpoint.load_span_predictor builds it and
+    as in JAX. Counted, then timed
+    on fresh batches (a batch keeps the predicted spans as its anchors), the
+    predictor timed alone; with one injected noise the result must equal,
+    bit for bit, separate() of the batch anchored at the predicted spans.
+    Returns the model, for the serve phase."""
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch import SAMAudio
+    from sam_audio_tpu_torch.models.init import center_span_head
+    from sam_audio_tpu_torch.models.span_predictor import PEAudioFrameConfig, PEAudioFrameModel
+
+    pcfg = PEAudioFrameConfig()
+    log(f"[spans] main's weights (seed 0, bf16) + PEAudioFrame {pcfg.num_layers} x {pcfg.hidden}, "
+        f"{pcfg.num_heads} heads, vocab {pcfg.vocab_size} (random, seed 0, fp32)")
+    model = SAMAudio.init_random(cfg, seed=0, device=DEVICE, tokenizer=tok)
+    # the anchor gate is 0 at init, which would make the predicted spans inert
+    gate = model.params["embed_anchors"]["gate"]
+    gate.fill_(0.5)
+    predictor = PEAudioFrameModel.init_random(pcfg, seed=0, device=DEVICE)
+    sr = model.sample_rate
+
+    def fresh():
+        return proc(descriptions=["a dog barking"],
+                    audios=[mixture(int(MIXTURE_SECONDS * sr), sr, 0)])
+
+    probe = fresh()
+    mask = np.asarray(probe.audio_pad_mask)
+    audios = torch.as_tensor(probe.audios, device=DEVICE)
+    with torch.inference_mode():
+        raw = predictor.logits(model, probe, audios).cpu().numpy()
+    # random weights: the head's bias is set so that between a third and two
+    # thirds of the clip's frames are active, or the spans could be empty
+    shift = center_span_head((predictor,), raw, mask)
+    log(f"  head bias shifted by {-shift:.4f} (random logits span "
+        f"[{raw[mask].min():.3f}, {raw[mask].max():.3f}])")
+    model.span_predictor = predictor
+    # kernel 3: the separate's encode and two decodes, and the predictor's own encode
+    enc, dec = codec_units(cfg.audio_codec)
+    expect = {"fused_glue_attention": n_layers * nfe, "fused_residual_unit": 2 * enc + 2 * dec,
+              "flash_attention": 0, "matmul_int4": 0}
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    batch = fresh()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = model.separate(batch, predict_spans=True, generator=gen)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    spans = [tuple(a[1:]) for a in batch.anchors[0]]
+    log(f"  counted run: {first_ms:.1f} ms, launches {counts}; {len(spans)} spans: "
+        f"{[(round(a, 2), round(b, 2)) for a, b in spans]}")
+    for name, n in expect.items():
+        require(counts[name] == n, f"spans: {counts[name]} {name} launches, expected {n}")
+    require(len(spans) > 0, "spans: no span predicted")
+    check_outputs(res, int(MIXTURE_SECONDS * sr), "spans")
+    times = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TIMED_RUNS):
+        b = fresh()
+        t0 = time.perf_counter()
+        model.separate(b, predict_spans=True, generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    sp_ms = []
+    with torch.inference_mode():
+        for _ in range(TIMED_RUNS + 1):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            predictor(model, probe, audios)
+            end.record()
+            torch.cuda.synchronize()
+            sp_ms.append(start.elapsed_time(end))
+    log(f"  timed runs (ms): {[round(t, 1) for t in times]}; p50 {p50(times):.1f} ms; "
+        f"realtime factor {MIXTURE_SECONDS * 1e3 / p50(times):.2f}x; peak memory "
+        f"{peak / 2**30:.2f} GiB; span predictor alone (CUDA events) "
+        f"{[round(t, 2) for t in sp_ms[1:]]} ms, p50 {p50(sp_ms[1:]):.2f} ms")
+    noise = torch.randn((1, batch.anchor_alignment.shape[-1], 2 * cfg.audio_codec.codebook_dim),
+                        generator=torch.Generator(device=DEVICE).manual_seed(6), device=DEVICE)
+    predicted = fresh()
+    a = model.separate(predicted, noise=noise, predict_spans=True)
+    anchored = proc(descriptions=["a dog barking"],
+                    audios=[mixture(int(MIXTURE_SECONDS * sr), sr, 0)],
+                    anchors=[[tuple(x) for x in predicted.anchors[0]]])
+    b = model.separate(anchored, noise=noise)
+    same = all(np.array_equal(x, y) for x, y in ((a.target[0], b.target[0]),
+                                                 (a.residual[0], b.residual[0])))
+    plain = model.separate(fresh(), noise=noise)
+    moved = float(np.abs(plain.target[0] - a.target[0]).max())
+    log(f"  predict_spans vs the same batch anchored at the predicted spans, one noise: "
+        f"bit-identical: {same}; max |target - unanchored target| {moved:.3e}")
+    require(same, "spans: predict_spans differs from separate() anchored at its spans")
+    require(moved > 0, "spans: the predicted spans do not change the target")
+    model.span_predictor = None
+    gate.zero_()   # main's weights again, for the serve phase
+    del predictor
+    torch.cuda.empty_cache()
+    return model, {"p50_ms": p50(times), "runs_ms": times, "first_ms": first_ms,
+                   "realtime_factor": MIXTURE_SECONDS * 1e3 / p50(times), "peak_bytes": peak,
+                   "launches": counts, "spans": spans, "span_predictor_ms": sp_ms[1:],
+                   "span_predictor_p50_ms": p50(sp_ms[1:])}
+
+
+SERVE_TIMEOUT = 300     # seconds any one HTTP call or future may take
+
+
+def _post(port, body: bytes, timeout=SERVE_TIMEOUT):
+    """POST /v1/separate; returns (status, JSON reply, seconds)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/separate", data=body,
+                                 method="POST", headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), time.perf_counter() - t0
+
+
+def _get(port, path):
+    import urllib.request
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=SERVE_TIMEOUT) as r:
+        return json.loads(r.read())
+
+
+def _wav_reply(b64):
+    import base64
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(base64.b64decode(b64)), "rb") as w:
+        return np.frombuffer(w.readframes(w.getnframes()), np.int16).astype(np.float32) / 32768
+
+
+def serve_phase(model, n_layers, nfe):
+    """main's model behind a ContinuousBatcher (max_batch 4, 2 s buckets, 50 ms
+    wait, direct up to 10 s, longer requests streamed up to 40 s) and a
+    SeparationServer on 127.0.0.1:0, warmed at 6 and 10 s. Eight concurrent
+    requests (four 6 s, four 10 s at 48 kHz as JSON floats, one of them a
+    44.1 kHz WAV instead), one 30 s request (streamed), one of 45 s (413) and
+    one malformed body (400); replies as 16-bit WAV. Then the same eight
+    through SeparationPipeline.run."""
+    import base64
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch.audio_io import write_wav
+    from sam_audio_tpu_torch.ops.resample import resample_np
+    from sam_audio_tpu_torch.server import ContinuousBatcher, SeparationServer
+    from sam_audio_tpu_torch.serving import SeparationPipeline, SeparationRequest
+
+    sr = model.sample_rate
+    batcher = ContinuousBatcher(model, max_batch=4, bucket_seconds=2.0, max_wait_ms=50.0,
+                                max_seconds=10.0, long_policy="stream", max_stream_seconds=40.0,
+                                autostart=False)
+    server = None
+    try:
+        t0 = time.perf_counter()
+        warmed = batcher.warmup(seconds=(6.0, 10.0))
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        log(f"[serve] ContinuousBatcher(max_batch=4, bucket 2 s, wait 50 ms, max_seconds=10, "
+            f"stream to 40 s): warmed {warmed} in {warm_s:.1f} s")
+        batcher.start()
+        server = SeparationServer(batcher, host="127.0.0.1", port=0,
+                                  request_timeout=SERVE_TIMEOUT)
+        server.start()
+        port = server.port
+        require(_get(port, "/healthz") == {"ok": True}, "serve: /healthz")
+
+        seconds = [6.0, 10.0] * 4
+        clips = [mixture(int(s * sr), sr, 20 + i) for i, s in enumerate(seconds)]
+        bodies = []
+        for i, clip in enumerate(clips):
+            req = {"description": ["a dog barking", "rain", "a bell", "speech"][i % 4],
+                   "response_format": "wav_b64"}
+            if i == 0:   # one request as a 44.1 kHz WAV: the server resamples it
+                req["audio_wav_b64"] = base64.b64encode(
+                    _wav_bytes(resample_np(clip[None], sr, 44100)[0], 44100)).decode()
+            else:
+                req["audio"] = clip.tolist()
+                req["sample_rate"] = sr
+            bodies.append(json.dumps(req).encode())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            replies = [f.result(timeout=SERVE_TIMEOUT)
+                       for f in [pool.submit(_post, port, b) for b in bodies]]
+        wall = time.perf_counter() - t0
+        direct_stats = _get(port, "/v1/stats")
+        for (code, body, _), clip in zip(replies, clips):
+            require(code == 200, f"serve: a request got {code}: {body.get('error')}")
+            for name in ("target", "residual"):
+                w = _wav_reply(body[f"{name}_wav_b64"])
+                require(w.shape == clip.shape, f"serve: {name} has {w.shape[0]} samples, the "
+                        f"request {clip.shape[0]}")
+                require(bool(np.isfinite(w).all()), f"serve: {name} is not finite")
+                require(float(np.sqrt(np.mean(w * w))) > 0, f"serve: {name} is silent")
+        lat = sorted(r[2] * 1e3 for r in replies)
+        served_s = sum(seconds)
+        log(f"  8 concurrent requests ({served_s:g} audio s): wall {wall * 1e3:.1f} ms, "
+            f"{served_s / wall:.2f} audio s per wall s; latency p50 {lat[len(lat) // 2]:.1f} ms, "
+            f"p90 {lat[int(0.9 * (len(lat) - 1) + 0.5)]:.1f} ms; batches "
+            f"{direct_stats['batches']}, batch_size_hist {direct_stats['batch_size_hist']}, "
+            f"occupancy {direct_stats['occupancy']:.3f}; metadata "
+            f"{[r[1]['metadata'] for r in replies]}")
+
+        long_clip = mixture(int(30.0 * sr), sr, 30)
+        code, body, stream_s = _post(port, json.dumps(
+            {"description": "a dog barking", "audio": long_clip.tolist(), "sample_rate": sr,
+             "response_format": "wav_b64"}).encode())
+        require(code == 200 and body["metadata"].get("streamed"),
+                f"serve: the 30 s request got {code} {body.get('metadata', body.get('error'))}")
+        w = _wav_reply(body["target_wav_b64"])
+        require(w.shape == long_clip.shape and np.isfinite(w).all() and np.abs(w).max() > 0,
+                "serve: bad streamed reply")
+        windows = body["metadata"]["num_windows"]
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  30 s request streamed through {windows} windows in {stream_s * 1e3:.1f} ms; "
+            f"launches (8 requests + the stream) {counts}")
+        over = np.zeros(int(45.0 * sr), np.float32)
+        code413, body413, _ = _post(port, json.dumps(
+            {"description": "x", "audio_wav_b64": base64.b64encode(
+                _wav_bytes(over, sr)).decode()}).encode())
+        code400, body400, _ = _post(port, b"{not json")
+        log(f"  45 s request: {code413} ({body413.get('error')}); malformed body: {code400}")
+        require(code413 == 413, f"serve: the 45 s request got {code413}, expected 413")
+        require(code400 == 400, f"serve: the malformed body got {code400}, expected 400")
+        stats = _get(port, "/v1/stats")
+        log(f"  /v1/stats {stats}")
+        require((stats["requests"], stats["streamed_requests"], stats["failed_requests"])
+                == (9, 1, 0), "serve: /v1/stats does not show 9 served, 1 streamed, 0 failed")
+        enc, dec = codec_units(model.cfg.audio_codec)
+        units = enc + 2 * dec   # one encode and two decodes a group or window
+        expect = {"fused_glue_attention": n_layers * nfe * (stats["batches"] + windows),
+                  "fused_residual_unit": units * (stats["batches"] + windows),
+                  "flash_attention": 0, "matmul_int4": 0}
+        require(counts == expect, f"serve: launches {counts}, expected {expect}")
+        # the same 8 clips as 16-bit WAV payloads: what the JSON floats cost
+        wav_bodies = [json.dumps({"description": json.loads(b)["description"],
+                                  "audio_wav_b64": base64.b64encode(_wav_bytes(c, sr)).decode(),
+                                  "response_format": "wav_b64"}).encode()
+                      for b, c in zip(bodies, clips)]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(wav_bodies)) as pool:
+            wav_replies = [f.result(timeout=SERVE_TIMEOUT)
+                           for f in [pool.submit(_post, port, b) for b in wav_bodies]]
+        wav_wall = time.perf_counter() - t0
+        require(all(r[0] == 200 for r in wav_replies), "serve: a WAV-payload request failed")
+        wav_lat = sorted(r[2] * 1e3 for r in wav_replies)
+        after = _get(port, "/v1/stats")
+        log(f"  the same 8 as 16-bit WAV payloads: wall {wav_wall * 1e3:.1f} ms, "
+            f"{served_s / wav_wall:.2f} audio s per wall s; latency p50 "
+            f"{wav_lat[len(wav_lat) // 2]:.1f} ms, p90 {wav_lat[int(0.9 * 7 + 0.5)]:.1f} ms; "
+            f"{after['batches'] - stats['batches']} batches")
+    finally:
+        if server is not None:
+            server.shutdown()
+        batcher.shutdown(timeout=SERVE_TIMEOUT)
+
+    work = os.path.join(HERE, "build", "serve")
+    os.makedirs(work, exist_ok=True)
+    path = os.path.join(work, "request0_44k.wav")
+    write_wav(path, resample_np(clips[0][None], sr, 44100), 44100)
+    reqs = [SeparationRequest(description=json.loads(b)["description"],
+                              audio=path if i == 0 else clips[i][None])
+            for i, b in enumerate(bodies)]
+    pipe = SeparationPipeline(model, max_batch=4, bucket_seconds=2.0)
+    t0 = time.perf_counter()
+    out = pipe.run(reqs)
+    torch.cuda.synchronize()
+    offline_s = time.perf_counter() - t0
+    require(all(o.target.shape == c.shape and np.isfinite(o.target).all()
+                for o, c in zip(out, clips)), "serve: bad offline pipeline output")
+    summary = {k: round(v * 1e3, 1) for k, v in pipe.timer.summary().items()}
+    log(f"  SeparationPipeline.run of the same 8 (offline): {offline_s * 1e3:.1f} ms, "
+        f"{served_s / offline_s:.2f} audio s per wall s; StageTimer ms {summary}; groups "
+        f"{sorted({(o.metadata['bucket'], o.metadata['batch_size']) for o in out})}")
+    return {"warmup_s": warm_s, "wall_ms": wall * 1e3, "audio_s_per_wall_s": served_s / wall,
+            "latency_ms": lat, "p50_latency_ms": lat[len(lat) // 2],
+            "p90_latency_ms": lat[int(0.9 * (len(lat) - 1) + 0.5)],
+            "batch_size_hist": direct_stats["batch_size_hist"],
+            "occupancy": direct_stats["occupancy"], "batches": direct_stats["batches"],
+            "stream_30s_ms": stream_s * 1e3, "stream_windows": windows, "peak_bytes": peak,
+            "launches": counts, "stats": stats, "offline_ms": offline_s * 1e3,
+            "offline_stage_ms": summary, "wav_payload_wall_ms": wav_wall * 1e3,
+            "wav_payload_latency_ms": wav_lat}
+
+
+def _wav_bytes(x, sr):
+    import io
+    import wave
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    with wave.open(buf, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(x, -1, 1) * 32767).astype("<i2").tobytes())
+    return buf.getvalue()
+
+
 def main() -> int:
     import torch
 
@@ -1490,6 +1960,14 @@ def main() -> int:
     # 13. a 30 s clip with its video streamed through 10 s windows
     visual_stream = visual_stream_phase(cfg, tok, proc, n_layers, nfe, seed=2)
 
+    # 14. separate(predict_spans=True) with a full-width PEAudioFrame predictor
+    model, spans = spans_phase(cfg, tok, proc, n_layers, nfe)
+
+    # 15. the HTTP server and its continuous batcher; the offline pipeline
+    serve = serve_phase(model, n_layers, nfe)
+    del model
+    torch.cuda.empty_cache()
+
     def entry(res, source, replaces, launches, ms, plain, lib, bms, by, dev, lib_dev):
         # "tpu_source", "max_err" and "kernel_ms" repeat "replaces",
         # "max_abs_err" and "ms" under a second set of names that readers use
@@ -1530,7 +2008,8 @@ def main() -> int:
                             "peak_bytes": long_peak, "launches": long_counts},
                "rerank_k8_10s": rerank, "stream_60s": stream, "judge_k8_10s": judge,
                "int4_10s": int4, "int8_10s": int8, "visual_10s": visual,
-               "visual_stream_30s": visual_stream, "power": smi}
+               "visual_stream_30s": visual_stream, "spans_10s": spans, "serve": serve,
+               "power": smi}
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "summary": summary,

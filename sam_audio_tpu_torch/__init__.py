@@ -1,6 +1,8 @@
-"""PyTorch/CUDA port of sam_audio_tpu: text-prompted separation, k-candidate
-reranking (CLAP, the judge, sound activity, their ensemble), streaming of
-long clips and the int8 / int4 serving modes.
+"""PyTorch/CUDA port of sam_audio_tpu: separation prompted by text, spans
+(given or predicted, models/span_predictor.py) or video, k-candidate
+reranking (CLAP, the judge, ImageBind, sound activity, their ensemble),
+streaming of long clips, the int8 / int4 serving modes, and serving
+(serving.py offline, server.py over HTTP, separate_cli.py).
 
 Plain tensor code is PyTorch; the four TPU (Pallas) kernels of the JAX package are
 hand-written CUDA kernels for Hopper (sm_90a) in `csrc/`, built with nvcc at

@@ -131,9 +131,10 @@ def load_sam_audio(path: str, device="cuda", allow_random_towers: bool = False,
     T5 encoder state dict (.pt) for the text tower, which checkpoint.pt does
     not hold (reference model.py:346-359). Returns a models.sam_audio.SAMAudio
     on `device`, with the rankers of `cfg.text_ranker` and
-    `cfg.visual_ranker`. Without a text tower, a random one is made only when
-    `allow_random_towers=True` (tests), which also lets a weightless ranker
-    take random weights."""
+    `cfg.visual_ranker`, and the span predictor of `<path>/span_predictor/`
+    when `cfg.span_predictor` names one (`load_span_predictor`). Without a
+    text tower, a random one is made only when `allow_random_towers=True`
+    (tests), which also lets a weightless ranker take random weights."""
     from sam_audio_tpu_torch.models.init import t5_encoder_init
     from sam_audio_tpu_torch.models.sam_audio import SAMAudio, resolve_device
     from sam_audio_tpu_torch.ranking import create_ranker
@@ -173,11 +174,71 @@ def load_sam_audio(path: str, device="cuda", allow_random_towers: bool = False,
     rankers = {name: create_ranker(getattr(cfg, name), allow_random=allow_random_towers,
                                    device=device)
                for name in ("text_ranker", "visual_ranker")}
+    span_predictor = None
+    sp_dir = os.path.join(path, "span_predictor")
+    if cfg.span_predictor is not None and os.path.exists(os.path.join(sp_dir, "params.npz")):
+        span_predictor = load_span_predictor(sp_dir, device)
     model = SAMAudio(cfg, params, device=device, tokenizer=tokenizer,
-                     allow_random_towers=allow_random_towers, **rankers)
+                     allow_random_towers=allow_random_towers, span_predictor=span_predictor,
+                     **rankers)
     if not allow_random_towers and tokenizer is None:
         model.tokenizer  # fail at load, not mid-separate, without a tokenizer
     return model
+
+
+SPAN_ARCH_TAG = "sam_audio_tpu_span"
+
+
+def load_span_predictor(sp_dir: str, device="cuda"):
+    """`<snapshot>/span_predictor/` (params.npz and config.json) -> the span
+    predictor its config names (JAX: checkpoint.py:874-918): `"arch":
+    "sam_audio_tpu_span"` is the native SpanPredictor, an untagged config a
+    converted PEAudioFrame checkpoint. Config keys the class lacks are
+    dropped."""
+    import dataclasses
+
+    from sam_audio_tpu_torch.models.span_predictor import (
+        PEAudioFrameConfig, PEAudioFrameModel, SpanPredictor, SpanPredictorConfig)
+
+    raw = {}
+    cfg_path = os.path.join(sp_dir, "config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as fin:
+            raw = json.load(fin)
+    cfg_cls, cls = ((SpanPredictorConfig, SpanPredictor) if raw.get("arch") == SPAN_ARCH_TAG
+                    else (PEAudioFrameConfig, PEAudioFrameModel))
+    known = {f.name for f in dataclasses.fields(cfg_cls)}
+    return cls(cfg_cls(**{k: v for k, v in raw.items() if k in known}),
+               load_params(os.path.join(sp_dir, "params.npz"), device))
+
+
+def save_span_predictor(snapshot_dir: str, predictor) -> str:
+    """Write `predictor` as `<snapshot_dir>/span_predictor/` in the JAX
+    package's layout (train/span.py save_span_predictor for the native arch,
+    scripts/convert_checkpoint.py for PEAudioFrame), and name a span
+    predictor in the snapshot's config.json if it names none, since the
+    loader attaches one only then. Returns the directory."""
+    import dataclasses
+
+    from sam_audio_tpu_torch.models.span_predictor import SpanPredictor
+
+    sp_dir = os.path.join(snapshot_dir, "span_predictor")
+    os.makedirs(sp_dir, exist_ok=True)
+    cfg = dataclasses.asdict(predictor.cfg)
+    if isinstance(predictor, SpanPredictor):
+        cfg = {"arch": SPAN_ARCH_TAG, **cfg}
+    with open(os.path.join(sp_dir, "config.json"), "w") as f:
+        json.dump(cfg, f, indent=1)
+    save_params(os.path.join(sp_dir, "params.npz"), predictor.params)
+    model_cfg = os.path.join(snapshot_dir, "config.json")
+    if os.path.exists(model_cfg):
+        with open(model_cfg) as f:
+            raw = json.load(f)
+        if not raw.get("span_predictor"):
+            raw["span_predictor"] = SPAN_ARCH_TAG
+            with open(model_cfg, "w") as f:
+                json.dump(raw, f, indent=2)
+    return sp_dir
 
 
 def load_judge(path: str, device="cuda", **config_overrides):

@@ -1,7 +1,7 @@
 """Reference checkpoints -> the parameter trees of the port.
 
 Counterpart of the converters of the JAX package (sam_audio_tpu/checkpoint.py,
-models/{clap,htsat,roberta,modernbert,pe_clip,imagebind}.py): a torch state
+models/{clap,htsat,roberta,modernbert,pe_clip,imagebind,span_predictor}.py): a torch state
 dict (`checkpoint.pt`, or a tower's own `.pt`) becomes the nested tree of
 numpy arrays that `checkpoint.params_from_numpy` takes and that the JAX
 package's `save_params` / `load_params` write and read. Numpy only: the same
@@ -24,6 +24,8 @@ Command line (the towers the port has; no hub, no network):
         --out imagebind.npz
     python -m sam_audio_tpu_torch.convert pe-clip --torch PE-Core-L14-336.pt \\
         --out pe_clip.npz
+    python -m sam_audio_tpu_torch.convert span-predictor --torch pe-a-frame-large.pt \\
+        --out SNAPSHOT/span_predictor
 """
 
 from __future__ import annotations
@@ -663,6 +665,48 @@ def convert_judge_state_dict(sd, cfg, return_arch: bool = False,
     return params, unconverted
 
 
+def convert_peaudioframe_state_dict(sd, cfg):
+    """A PEAudioFrame checkpoint (reference model.py:96-102) -> the tree of
+    models/span_predictor.peaudioframe_forward (cfg: PEAudioFrameConfig;
+    JAX: models/span_predictor.py:250-293). The transformer is sniffed by
+    `convert_peav_tower` under the first prefix that holds one; the token
+    embedding, the latent projection and the frame head are matched by
+    their common names. Returns (params, arch, unconverted)."""
+    sd = {k[7:] if k.startswith("module.") else k: np.asarray(v) for k, v in sd.items()}
+    consumed = set()
+
+    def lin(base):
+        p = {"weight": _arr(sd[f"{base}.weight"])}
+        consumed.add(f"{base}.weight")
+        if f"{base}.bias" in sd:
+            p["bias"] = _arr(sd[f"{base}.bias"])
+            consumed.add(f"{base}.bias")
+        return p
+
+    def find(names):
+        return next((n for n in names if f"{n}.weight" in sd), None)
+
+    for prefix in ("transformer.", "audio_encoder.", "encoder.", "model.", ""):
+        try:
+            tower, arch, left = convert_peav_tower(sd, prefix, cfg)
+            break
+        except (ValueError, KeyError):
+            continue
+    else:
+        raise ValueError("no PE-AV transformer tower found in the state dict")
+    consumed |= {k for k in sd if k.startswith(prefix)} - set(left)
+    params = {"transformer": tower}
+    for slot, names in (
+            ("text_embed", ("text_embed", "token_embedding", "embed_tokens", "text_embedding",
+                            "word_embeddings", "text_encoder.embed_tokens")),
+            ("data_proj", ("data_proj", "input_proj", "audio_proj", "in_proj", "proj")),
+            ("head", ("head", "frame_head", "classifier", "span_head", "fc_out"))):
+        base = find(names)
+        if base:
+            params[slot] = lin(base)
+    return params, arch, sorted(set(sd) - consumed)
+
+
 # ---------------------------------------------------------------------------
 # The CLAP ranker's towers (models/{clap,htsat,roberta}.py of the JAX package)
 # ---------------------------------------------------------------------------
@@ -1081,11 +1125,42 @@ def _convert_tower(kind: str, argv):
     print(f"wrote {args.out} (for {where})")
 
 
+def _convert_span_predictor(argv):
+    """A PEAudioFrame checkpoint -> `--out`/params.npz + config.json (the
+    sniffed switches written into the PEAudioFrameConfig), the layout the
+    JAX package's scripts/convert_checkpoint.py writes."""
+    import dataclasses
+
+    from sam_audio_tpu_torch.checkpoint import save_params
+    from sam_audio_tpu_torch.models.span_predictor import PEAudioFrameConfig
+
+    ap = argparse.ArgumentParser(prog="python -m sam_audio_tpu_torch.convert span-predictor")
+    ap.add_argument("--torch", required=True, help="the PEAudioFrame torch checkpoint")
+    ap.add_argument("--out", required=True,
+                    help="the directory to write; place it as <snapshot>/span_predictor/")
+    args = ap.parse_args(argv)
+    cfg = PEAudioFrameConfig()
+    params, arch, unconverted = convert_peaudioframe_state_dict(
+        load_torch_state_dict(args.torch), cfg)
+    if unconverted:
+        raise SystemExit(f"unconverted PEAudioFrame keys: {unconverted[:20]}")
+    cfg = dataclasses.replace(cfg, **{k: v for k, v in arch.items()
+                                      if k in {f.name for f in dataclasses.fields(cfg)}})
+    os.makedirs(args.out, exist_ok=True)
+    save_params(os.path.join(args.out, "params.npz"), params)
+    with open(os.path.join(args.out, "config.json"), "w") as fout:
+        json.dump(dataclasses.asdict(cfg), fout, indent=2)
+    print(f"wrote {args.out}/params.npz + config.json (place under <snapshot>/span_predictor/ "
+          "for load_sam_audio to attach)")
+
+
 TOWER_COMMANDS = ("clap", "imagebind", "pe-clip")
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "span-predictor":
+        return _convert_span_predictor(argv[1:])
     if argv and argv[0] in TOWER_COMMANDS:
         return _convert_tower(argv[0], argv[1:])
     ap = argparse.ArgumentParser(prog="python -m sam_audio_tpu_torch.convert")

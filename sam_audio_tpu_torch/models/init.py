@@ -427,3 +427,59 @@ def imagebind_huge_init(cfg, generator: torch.Generator, device, scale: float = 
         "head_proj": {"weight": ini.normal((cfg.embed_dim, cfg.vision_dim), scale)},
     }
     return {"audio": audio, "vision": vision}
+
+
+def span_predictor_init(cfg, generator: torch.Generator, device):
+    """models/span_predictor.py's native tree (SpanPredictorConfig), random,
+    fp32: pre-LN layers stacked on axis 0, each with RoPE self-attention,
+    cross-attention and a bias-free SwiGLU FFN of 4 x hidden."""
+    ini = _Init(generator, device)
+    h = cfg.hidden
+
+    def layer():
+        return {"ln1": ini.affine(h),
+                "self_attn": {n: ini.linear(h, h) for n in ("wq", "wk", "wv", "wo")},
+                "ln_cross": ini.affine(h),
+                "cross_attn": {n: ini.linear(h, h) for n in ("wq", "wk", "wv", "wo")},
+                "ln2": ini.affine(h),
+                "mlp": {"w1": ini.linear(h, 4 * h, False), "w2": ini.linear(4 * h, h, False),
+                        "w3": ini.linear(h, 4 * h, False)}}
+
+    return {"audio_embed": ini.linear(cfg.audio_dim, h),
+            "text_embed": ini.linear(cfg.text_dim, h),
+            "layers": _stack([layer() for _ in range(cfg.n_layers)]),
+            "final_norm": ini.affine(h),
+            "head": ini.linear(h, 1)}
+
+
+def peaudioframe_init(cfg, generator: torch.Generator, device):
+    """A PEAudioFrame tree (the layout convert.convert_peaudioframe_state_dict
+    gives), random, fp32: peav_init's tower of cfg.transformer(), the token
+    embedding, the latent projection and the frame head."""
+    ini = _Init(generator, device)
+    return {"transformer": peav_init(cfg.transformer(), ini),
+            "text_embed": {"weight": ini.normal((cfg.vocab_size, cfg.hidden))},
+            "data_proj": ini.linear(cfg.audio_dim, cfg.hidden),
+            "head": ini.linear(cfg.hidden, 1)}
+
+
+def center_span_head(predictors, logits, mask, scale: float = 1.0) -> float:
+    """For random span heads, whose logits may put every frame on one side of
+    the threshold or many next to it: scale each predictor's head by `scale`
+    and shift its bias so that the middle third of the valid frames straddles
+    the threshold (0 in logits) at the widest gap between neighbouring sorted
+    logits. `logits` (numpy, (B, T)) are the heads' output before the change,
+    `mask` their valid frames; every predictor gets the same change (new
+    tensors: the old ones may share memory with another tree). Returns the
+    shift."""
+    import numpy as np
+
+    s = np.sort(np.asarray(logits)[np.asarray(mask, bool)] * scale)
+    lo, hi = len(s) // 3, 2 * len(s) // 3
+    i = lo + int(np.argmax(s[lo + 1: hi + 1] - s[lo: hi]))
+    shift = float(s[i] + s[i + 1]) / 2
+    for p in predictors:
+        head = p.params["head"]
+        head["weight"] = head["weight"] * scale
+        head["bias"] = head["bias"] * scale - shift
+    return shift

@@ -5,8 +5,9 @@ sam_audio/model/model.py:75-362):
 
   * `forward` — one velocity-field evaluation (noisy latents + conditioning
     -> velocity), reference model.py:130-180.
-  * `SAMAudio.separate` — codec-encode, T5-encode, condition (text, anchors,
-    and a masked video through the PE-Core vision tower, models/pe_clip.py),
+  * `SAMAudio.separate` — codec-encode, T5-encode, condition (text, anchors
+    given or predicted by the span predictor, models/span_predictor.py, and a
+    masked video through the PE-Core vision tower, models/pe_clip.py),
     integrate the ODE (midpoint, 16 steps = 32 DiT evaluations),
     codec-decode target and residual. Reference model.py:247-338. With k
     candidates and a ranker (a text ranker, or the visual ranker when the
@@ -185,7 +186,7 @@ class SAMAudio:
 
     def __init__(self, cfg: SAMAudioConfig, params, device="cuda", tokenizer=None,
                  allow_random_towers: bool = False, text_ranker=None,
-                 visual_ranker=None, vision_encoder=None):
+                 visual_ranker=None, vision_encoder=None, span_predictor=None):
         from sam_audio_tpu_torch.checkpoint import cast_matmul_weights
 
         self.cfg = cfg
@@ -205,6 +206,10 @@ class SAMAudio:
         # from checkpoint.pt (reference model.py:346-359); without one a
         # visual prompt raises unless allow_random_towers (tests)
         self.vision_encoder = vision_encoder
+        # `(model, batch, audios) -> spans` for separate(predict_spans=True)
+        # (models/span_predictor.py); load_sam_audio attaches the one of
+        # <snapshot>/span_predictor/
+        self.span_predictor = span_predictor
         self._warned_visual_host = False
 
     @classmethod
@@ -335,7 +340,13 @@ class SAMAudio:
         frame. `visual_stride` (opt-in, not reference semantics) encodes
         every stride-th frame and interpolates the features between them.
         With k > 1 and a `visual_ranker`, the ranker scores the candidates
-        against the video."""
+        against the video.
+
+        `predict_spans`: when the batch has no anchors, the attached
+        `span_predictor` predicts when the described sound occurs and its
+        spans become "+" anchors of `batch` (in place). Without a predictor it
+        raises, unless `allow_random_towers` (then it is skipped, as in JAX);
+        past the direct limit it raises."""
         if preview_nfe is not None and (int(preview_nfe) < 2 or int(preview_nfe) % 2):
             raise ValueError(
                 "preview_nfe must be an even integer >= 2 (midpoint previews "
@@ -361,15 +372,19 @@ class SAMAudio:
             logger.warning("separate: %d frames exceeds the direct limit (%d) "
                            "but explicit noise= forces the direct path",
                            t_frames, limit)
-        if predict_spans:
-            raise NotImplementedError(
-                "predict_spans is not ported yet (the spans slice)")
-
         dev = self.device
         audios = torch.as_tensor(np.asarray(batch.audios), dtype=torch.float32,
                                  device=dev)
         b = audios.shape[0]
         text_ids, text_mask = self._tokenize(batch.descriptions)
+        if predict_spans and self.span_predictor is None and not self.allow_random_towers:
+            raise ValueError(
+                "predict_spans=True but no span predictor is attached. Convert a "
+                "PEAudioFrame checkpoint into <snapshot>/span_predictor/ (python -m "
+                "sam_audio_tpu_torch.convert span-predictor ...): the reference always "
+                "loads 'pe-a-frame-large' (sam_audio/model/model.py:96-102).")
+        if predict_spans and self.span_predictor is not None and batch.anchors is None:
+            self._predict_spans_into_batch(batch, audios)
         video_features = None
         if batch.masked_video is not None:
             video_features = self._encode_videos(batch.masked_video, t_frames,
@@ -541,3 +556,8 @@ class SAMAudio:
         from sam_audio_tpu_torch.models.pe_clip import encode_videos
 
         return encode_videos(self, masked_videos, t_frames, stride=stride)
+
+    def _predict_spans_into_batch(self, batch, audios):
+        """The predicted spans become "+" anchors of `batch` (in place)."""
+        spans = self.span_predictor(self, batch, audios)
+        batch.process_anchors([[["+"] + list(span) for span in item] for item in spans])

@@ -7,11 +7,13 @@ per latent frame (`load_video`), video masking (`mask_videos`). Host-side numpy 
 the arrays to its device. `SAMAudioJudgeProcessor` prepares the judge's
 (text, mixture, separated) inputs.
 
-Not ported, on purpose: the JAX processor's `pad_to_samples`,
-`bucket_seconds` and `pad_anchors_to` (sam_audio_tpu/processor.py:253-316)
-pad a batch to a fixed shape so that XLA reuses one compiled program. Eager
-PyTorch compiles no program per shape, and the padding changes no number
-(anchor slots past the last anchor are never referenced by the alignment).
+`pad_to_samples` right-pads a batch to a given length: the serving batcher
+pads each group to its length bucket, so that its groups have the JAX
+package's shapes (and a parity test can inject the same noise into both).
+Not ported, on purpose: the JAX processor's `bucket_seconds` and
+`pad_anchors_to` (sam_audio_tpu/processor.py:253-316) exist so that XLA
+reuses one compiled program; eager PyTorch compiles no program per shape,
+and anchor slots past the last anchor are never referenced.
 """
 
 from __future__ import annotations
@@ -194,15 +196,23 @@ class SAMAudioProcessor:
         audios: Sequence[Union[str, np.ndarray]],
         anchors: Optional[List[List[Anchor]]] = None,
         masked_videos=None,
+        pad_to_samples: Optional[int] = None,
     ) -> Batch:
         """reference: sam_audio/processor.py:211-260. `masked_videos`: per
         item the masked frames (N, C, H, W) (see `mask_videos`) or a video
-        file, mapped to one frame per latent frame."""
+        file, mapped to one frame per latent frame. `pad_to_samples` (at
+        least the longest item) is the padded waveform length."""
         assert len(descriptions) == len(audios)
         assert anchors is None or len(descriptions) == len(anchors)
         assert masked_videos is None or len(descriptions) == len(masked_videos)
 
         audio_arr, wav_sizes = batch_audio(audios, self.audio_sampling_rate)
+        if pad_to_samples is not None:
+            tmax = audio_arr.shape[-1]
+            if pad_to_samples < tmax:
+                raise ValueError(f"pad_to_samples={pad_to_samples} is shorter than the "
+                                 f"longest item ({tmax} samples)")
+            audio_arr = np.pad(audio_arr, [(0, 0), (0, 0), (0, pad_to_samples - tmax)])
 
         sizes = self.wav_to_feature_idx(wav_sizes)
         t_feat = self.wav_to_feature_idx(int(audio_arr.shape[-1]))

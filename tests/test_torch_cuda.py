@@ -419,6 +419,101 @@ def test_cuda_small_visual_separate_like_the_cpu(cuda):
         np.testing.assert_allclose(x, y, rtol=0, atol=2e-3)
 
 
+def _small_span_model(dev):
+    """A small fp32 model with a narrow native span predictor on `dev`, and
+    its copy on the CPU (the same weights)."""
+    from sam_audio_tpu_torch import SAMAudio
+    from sam_audio_tpu_torch.config import (
+        DACVAEConfig, SAMAudioConfig, T5EncoderConfig, TransformerConfig)
+    from sam_audio_tpu_torch.models.span_predictor import SpanPredictor, SpanPredictorConfig
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+    from sam_audio_tpu_torch.utils import tree_map
+
+    cfg = SAMAudioConfig(
+        in_channels=96,
+        audio_codec=DACVAEConfig(encoder_dim=32, encoder_rates=(2, 4), latent_dim=64,
+                                 decoder_dim=128, decoder_rates=(4, 2), codebook_dim=16,
+                                 sample_rate=8000),
+        text_encoder=T5EncoderConfig(dim=64, num_layers=2, num_heads=4, head_dim=16, d_ff=128,
+                                     vocab_size=512),
+        transformer=TransformerConfig(dim=256, n_heads=2, n_layers=2, dropout=0.0,
+                                      context_dim=256, max_positions=2048,
+                                      frequency_embedding_dim=64, out_channels=32),
+        span_predictor=None, compute_dtype="float32")
+    tok = ByteFallbackTokenizer(512)
+    gpu = SAMAudio.init_random(cfg, seed=0, device=dev, tokenizer=tok)
+    sp_cfg = SpanPredictorConfig(audio_dim=16, text_dim=64, hidden=64, n_layers=2, n_heads=4,
+                                 min_duration_s=0.005)
+    gpu.span_predictor = SpanPredictor.init_random(sp_cfg, seed=1, device=dev)
+    gpu.params["embed_anchors"]["gate"].fill_(0.5)   # 0 at init: the spans would be inert
+    cpu = SAMAudio(cfg, tree_map(lambda x: x.cpu(), gpu.params), device="cpu", tokenizer=tok,
+                   span_predictor=SpanPredictor(
+                       sp_cfg, tree_map(lambda x: x.cpu(), gpu.span_predictor.params)))
+    return gpu, cpu
+
+
+@pytest.mark.cuda
+def test_cuda_span_predictor_like_the_cpu(cuda):
+    """The native span predictor's logits on the card (its codec encode
+    through kernel 3) against the CPU, then separate(predict_spans=True) on
+    both with the same noise: the same spans (no frame within 1e-3 of the
+    threshold), targets within 2e-3."""
+    import numpy as np
+
+    from sam_audio_tpu_torch import SAMAudioProcessor
+    from sam_audio_tpu_torch.models.init import center_span_head
+
+    gpu, cpu = _small_span_model(cuda)
+    rng = np.random.RandomState(0)
+    wavs = [(0.3 * np.sin(np.arange(1600) * 0.05) + 0.05 * rng.randn(1600)).astype(np.float32),
+            (0.2 * rng.randn(1200)).astype(np.float32)]
+    proc = SAMAudioProcessor(8, 8000)
+    batches = [proc(descriptions=["a tone", "noise"], audios=wavs) for _ in range(2)]
+    audios = torch.as_tensor(batches[0].audios)
+    mask = np.asarray(batches[0].audio_pad_mask)
+    # a random head's logits lie close together: scale it by 20 and centre its bias
+    center_span_head([gpu.span_predictor, cpu.span_predictor],
+                     cpu.span_predictor.logits(cpu, batches[0], audios).numpy(), mask, scale=20.0)
+    n3 = fused_residual_unit.launches
+    lg = gpu.span_predictor.logits(gpu, batches[0], audios.to(cuda))
+    assert fused_residual_unit.launches - n3 == 6   # one encode: 2 blocks x 3 units
+    ref = cpu.span_predictor.logits(cpu, batches[0], audios)
+    torch.testing.assert_close(lg.cpu(), ref, rtol=0, atol=2e-3)
+    assert float((torch.sigmoid(ref) - 0.5).abs()[torch.as_tensor(mask)].min()) >= 1e-3
+    noise = rng.randn(2, 200, 32).astype(np.float32)
+    a = gpu.separate(batches[0], noise=noise, predict_spans=True)
+    b = cpu.separate(batches[1], noise=noise, predict_spans=True)
+    assert batches[0].anchors == batches[1].anchors and any(batches[0].anchors)
+    for x, y in ((a.target[0], b.target[0]), (a.residual[1], b.residual[1])):
+        assert np.isfinite(x).all()
+        np.testing.assert_allclose(x, y, rtol=0, atol=2e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_batcher_serves_a_request(cuda):
+    """One request through a ContinuousBatcher of a small model on the card:
+    the kernels run on its device thread, and the reply has the clip's
+    length."""
+    import numpy as np
+
+    from sam_audio_tpu_torch.server import ContinuousBatcher
+    from sam_audio_tpu_torch.serving import SeparationRequest
+
+    gpu, _ = _small_span_model(cuda)
+    batcher = ContinuousBatcher(gpu, max_batch=2, bucket_seconds=0.1, max_wait_ms=0.0)
+    try:
+        n1 = fused_glue_attention.launches
+        out = batcher.separate(SeparationRequest(
+            description="a tone", audio=(0.1 * np.sin(np.arange(1000) * 0.05)).astype(
+                np.float32)), timeout=300)
+    finally:
+        batcher.shutdown(timeout=60)
+    assert fused_glue_attention.launches - n1 == 2 * 32
+    assert out.target.shape == (1000,) and np.isfinite(out.target).all()
+    assert out.metadata == {"bucket": 1600, "batch_size": 1, "dispatch_size": 1}
+    assert batcher.stats_snapshot()["requests"] == 1
+
+
 def test_cuda_is_refused_without_a_gpu(monkeypatch):
     """With no GPU, asking for the card raises for the PE tower and the
     ImageBind ranker alike (no silent CPU path). Runs anywhere: the missing

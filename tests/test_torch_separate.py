@@ -142,8 +142,12 @@ def test_tokenizer_ids_and_text_padding(tmp_path):
 def test_unported_options_raise(tmp_path):
     cfg, _, tm = _snapshot(tmp_path)
     batch = _batch(cfg, SAMAudioProcessor)
-    with pytest.raises(NotImplementedError):
+    # predict_spans is ported (tests/test_torch_spans.py): with no span
+    # predictor attached it raises ValueError, as in JAX
+    tm.allow_random_towers = False
+    with pytest.raises(ValueError, match="no span predictor is attached"):
         tm.separate(batch, predict_spans=True)
+    tm.allow_random_towers = True
     # visual_stride is ported: without a video it changes nothing
     noise = np.random.RandomState(0).randn(2, batch.anchor_alignment.shape[-1], 8).astype(
         np.float32)
