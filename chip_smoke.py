@@ -82,6 +82,26 @@ Phases (any failure exits non-zero):
                (400); /v1/stats must show 9 served, 1 streamed, 0 failed, and
                kernel 1 launch 512 per group and per window. Then the same 8
                through SeparationPipeline.run.
+ 16. eval    — the eval harness (sam_audio_tpu_torch.eval): first phase 4's
+               small model through run_eval on the card and on the CPU with
+               the same injected noise (4 items of 0.2 s), scored by small
+               Judge, AesPredictor and CLAP towers and, in a second run, by
+               a narrow AudioboxAesthetics (its WavLM tower), whose averaged
+               metrics must agree;
+               then main's model (seed 0, bf16) with phase 7's CLAP ranker,
+               scored by phase 9's judge, an AudioboxAesthetics at WavLM-base
+               widths and phase 7's CLAP model (all random, built with
+               model=): run_eval over a setting registered here alone,
+               "synthetic-10s" (8 items of 10 s) twice, the second run
+               warm, at batch_size=4 and reranking_candidates=8, then
+               "synthetic-span" at its
+               defaults, each counted (kernel 1: 512 a separate; kernel 3:
+               48 a separate of 32 candidates, whose targets decode in two
+               chunks of 16, plus 12 for the judge's encoder a batch), its
+               averages finite and its JSON written; the WavLM encode of
+               8 x 10 s chunks timed; last the ImageBind metric on phase 12's
+               winning target and video with the imagebind_huge tower, equal
+               to phase 12's host ranking score of that pair.
 Phase 4 also attaches a narrow native span predictor to the small model:
 logits card vs CPU (2e-3), the same spans with no frame within 1e-3 of the
 threshold, separate(predict_spans=True) on both; its snapshot with
@@ -113,6 +133,7 @@ LONG_SECONDS = 45.0
 STREAM_SECONDS = 60.0
 STREAM_WINDOW_SECONDS = 10.0
 TIMED_RUNS = 3
+EVAL_SECONDS = 10.0     # the eval phase's script-local setting "synthetic-10s"
 
 
 def log(*args):
@@ -1440,6 +1461,8 @@ def visual_phase(cfg, tok, proc, n_layers, nfe):
     require(np.array_equal(res.target[0], targets[0, winner, :sizes[0]]),
             "visual k=8: the returned target is not the winning candidate")
     check_ranking("visual imagebind", rec, 1e-3)
+    # the winner and its video, for the eval phase's ImageBind metric
+    pair = (targets[0, winner, :sizes[0]], batch.masked_video[0], float(host[0][winner]))
     log(f"  timed runs (ms): {[round(t, 1) for t in times]}; p50 {p50(times):.1f} ms; peak "
         f"memory {peak / 2**30:.2f} GiB; ImageBind scoring alone (CUDA events) "
         f"{[round(t, 2) for t in score_ms[1:]]} ms")
@@ -1460,7 +1483,7 @@ def visual_phase(cfg, tok, proc, n_layers, nfe):
     del model
     torch.cuda.empty_cache()
     return {"k1": out[1], "stride4": out[4], "pe_encode_saved_ms_stride4": saved,
-            "k8_imagebind": rec, "int8": int8}
+            "k8_imagebind": rec, "int8": int8, "imagebind_pair": pair}
 
 
 def visual_stream_phase(cfg, tok, proc, n_layers, nfe, seed):
@@ -1826,6 +1849,225 @@ def serve_phase(model, n_layers, nfe):
             "wav_payload_latency_ms": wav_lat}
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the eval harness
+# ---------------------------------------------------------------------------
+
+
+class TimedMetric:
+    """An eval metric whose calls are timed with CUDA events."""
+
+    def __init__(self, metric):
+        self.metric, self.keys, self.ms = metric, metric.keys, []
+
+    def __call__(self, **kw):
+        import torch
+
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.metric(**kw)
+        end.record()
+        torch.cuda.synchronize()
+        self.ms.append(start.elapsed_time(end))
+        return out
+
+
+def small_eval():
+    """Phase 4's small model through run_eval on the card and on the CPU with
+    the same injected noise and metric towers: 4 items of 0.2 s (200 frames,
+    kernel 1) at batch_size 2, k=1, scored once by the Judge, the
+    AesPredictor stand-in and CLAP, and once by an AudioboxAesthetics (the
+    WavLM tower). The averaged metrics must agree."""
+    from sam_audio_tpu_torch import SAMAudio, SAMAudioProcessor
+    from sam_audio_tpu_torch.eval import main as eval_main
+    from sam_audio_tpu_torch.eval.datasets import SyntheticBench
+    from sam_audio_tpu_torch.eval.settings import SETTINGS
+    from sam_audio_tpu_torch.models.init import inject_noise, small_eval_metrics
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+    from sam_audio_tpu_torch.utils import tree_map
+
+    log("[eval] small model through run_eval on the card vs on the CPU")
+    cfg = small_config()
+    codec = cfg.audio_codec
+    tok = ByteFallbackTokenizer(cfg.text_encoder.vocab_size)
+    gpu = SAMAudio.init_random(cfg, seed=0, device=DEVICE, tokenizer=tok)
+    cpu = SAMAudio(cfg, tree_map(lambda x: x.cpu(), gpu.params), device="cpu", tokenizer=tok,
+                   allow_random_towers=True)
+    proc = SAMAudioProcessor(codec.hop_length, codec.sample_rate)
+    SETTINGS["synthetic-small"] = (SyntheticBench, {"seconds": 0.2, "num_items": 4})
+    out_dir = os.path.join(HERE, "build", "eval_small")
+    runs = (("judge", "aesthetic-predictor", "clap"), ("aesthetic-audiobox",))
+    res = {DEVICE: {}, "cpu": {}}
+    try:
+        for dev, model in ((DEVICE, gpu), ("cpu", cpu)):
+            inject_noise(model, 2 * codec.codebook_dim)
+            metrics = small_eval_metrics(codec, dev)
+            for names in runs:
+                reset_counts()
+                res[dev][names] = eval_main.run_eval(
+                    ["synthetic-small"], cache_path=out_dir, batch_size=2, checkpoint_path="",
+                    reranking_candidates=1, model=model, processor=proc,
+                    metrics=[metrics[n] for n in names],
+                    output_dir=os.path.join(out_dir, dev), device=dev)["synthetic-small"]
+                if dev == DEVICE and names == runs[0]:
+                    counts = read_counts()
+    finally:
+        del SETTINGS["synthetic-small"]
+    enc, dec = codec_units(codec)
+    expect = {"fused_glue_attention": 2 * cfg.transformer.n_layers * 32,
+              "fused_residual_unit": 2 * (enc + 2 * dec + enc),
+              "flash_attention": 0, "matmul_int4": 0}
+    require(counts == expect, f"small eval: launches {counts}, expected {expect}")
+    worst = {}
+    for names, n_keys in zip(runs, (9, 4)):
+        card, host = res[DEVICE][names], res["cpu"][names]
+        require(card.keys() == host.keys() and len(host) == n_keys,
+                f"small eval {names}: the card and the CPU report different metrics")
+        worst[names[-1]] = max(abs(card[k] - v) for k, v in host.items())
+        require(all(abs(card[k] - v) <= 2e-3 + 2e-3 * abs(v) for k, v in host.items()),
+                f"small eval {names}: card and CPU averages disagree beyond 2e-3")
+    log(f"  launches {counts}; max |card - cpu| of the averages: judge / predictor / CLAP "
+        f"{worst['clap']:.3e}, AudioboxAesthetics {worst['aesthetic-audiobox']:.3e}")
+    return {"launches": counts, "max_abs_diff_card_cpu": worst}
+
+
+def eval_phase(cfg, tok, proc, n_layers, nfe, imagebind_pair):
+    """run_eval at full width: main's model (seed 0, bf16) with phase 7's
+    CLAP ranker at k=8, scored by phase 9's judge, an AudioboxAesthetics at
+    WavLM-base widths and phase 7's CLAP model, over `synthetic-10s` twice
+    (the second run warm) and `synthetic-span`; then the WavLM encode alone
+    and the ImageBind metric on phase 12's winning pair."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch import SAMAudio
+    from sam_audio_tpu_torch.config import ClapRankerConfig, SAMAudioJudgeConfig
+    from sam_audio_tpu_torch.eval import main as eval_main
+    from sam_audio_tpu_torch.eval.datasets import SyntheticBench
+    from sam_audio_tpu_torch.eval.metrics import CLAP, Aesthetic, ImageBind, Judge
+    from sam_audio_tpu_torch.eval.settings import SETTINGS
+    from sam_audio_tpu_torch.models.aesthetics import AudioboxAesthetics
+    from sam_audio_tpu_torch.models.imagebind import ImageBindHugeConfig, ImageBindHugeModel
+    from sam_audio_tpu_torch.models.judge import SAMAudioJudgeModel
+    from sam_audio_tpu_torch.models.wavlm import wavlm_encode
+    from sam_audio_tpu_torch.processor import SAMAudioJudgeProcessor
+    from sam_audio_tpu_torch.ranking.clap import ClapRanker
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+
+    rec = {"small": small_eval()}
+    jcfg = SAMAudioJudgeConfig()
+    log("[eval] main's model (seed 0, bf16) + phase 7's CLAP ranker; metrics: phase 9's judge, "
+        "AudioboxAesthetics at WavLM-base widths, phase 7's CLAP model (all random)")
+    model = SAMAudio.init_random(cfg, seed=0, device=DEVICE, tokenizer=tok)
+    ranker = ClapRanker(ClapRankerConfig(), allow_random=True, device=DEVICE)
+    model.text_ranker = ranker
+    judge = SAMAudioJudgeModel.init_random(jcfg, seed=0, device=DEVICE)
+    aes = AudioboxAesthetics.init_random(seed=0, device=DEVICE)
+    metrics = [TimedMetric(Judge(model=judge, processor=SAMAudioJudgeProcessor(
+                   jcfg.audio_codec.hop_length, jcfg.audio_codec.sample_rate,
+                   ByteFallbackTokenizer(jcfg.text_model.vocab_size)))),
+               TimedMetric(Aesthetic(model=aes)), TimedMetric(CLAP(model=ranker.model))]
+    enc, dec = codec_units(cfg.audio_codec)
+    judge_enc, _ = codec_units(jcfg.audio_codec)
+    k, batch_size = 8, 4
+    separate_ms = []
+    inner = model.separate
+
+    def timed_separate(batch, **kw):   # each batch's separate, on the host clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = inner(batch, **kw)
+        torch.cuda.synchronize()
+        separate_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    model.separate = timed_separate
+    out_dir = os.path.join(HERE, "build", "eval")
+    SETTINGS["synthetic-10s"] = (SyntheticBench, {"seconds": EVAL_SECONDS, "num_items": 8})
+    try:
+        for setting, n_items, run in (("synthetic-10s", 8, 1), ("synthetic-10s", 8, 2),
+                                      ("synthetic-span", 4, 1)):
+            for m in metrics:
+                m.ms = []
+            separate_ms.clear()
+            batches = math.ceil(n_items / batch_size)
+            # a separate of 4 x 8 candidates decodes its targets in two chunks of 16
+            expect = {"fused_glue_attention": batches * n_layers * nfe,
+                      "fused_residual_unit": batches * (enc + dec * math.ceil(batch_size * k / 16)
+                                                        + dec + judge_enc),
+                      "flash_attention": 0, "matmul_int4": 0}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            avg = eval_main.run_eval([setting], cache_path=out_dir, batch_size=batch_size,
+                                     checkpoint_path="", reranking_candidates=k, model=model,
+                                     processor=proc, metrics=metrics, output_dir=out_dir,
+                                     device=DEVICE)[setting]
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            for name, n in expect.items():
+                require(counts[name] == n,
+                        f"eval {setting}: {counts[name]} {name} launches, expected {n}")
+            require(len(avg) == 9 and all(np.isfinite(v) for v in avg.values()),
+                    f"eval {setting}: averaged metrics {avg}")
+            with open(os.path.join(out_dir, f"{setting}.json")) as f:
+                require(sorted(json.load(f)) == sorted(avg), f"eval {setting}: JSON differs")
+            metric_ms = {type(m.metric).__name__: sum(m.ms) for m in metrics}
+            rec[f"{setting} run {run}"] = {
+                "wall_ms": wall, "ms_per_item": wall / n_items,
+                "items_per_s": n_items * 1e3 / wall, "metric_ms": metric_ms,
+                "separate_ms": list(separate_ms), "peak_bytes": peak, "launches": counts,
+                "averages": avg}
+            log(f"  {setting} run {run}: {n_items} items in {wall:.1f} ms ({wall / n_items:.1f} "
+                f"ms an item, {n_items * 1e3 / wall:.3f} items/s), launches {counts}; separate ms a batch "
+                f"{[round(t, 1) for t in separate_ms]}; metric ms (CUDA "
+                f"events) {({n: round(v, 1) for n, v in metric_ms.items()})}; peak memory "
+                f"{peak / 2**30:.2f} GiB; averages "
+                f"{({n: round(v, 4) for n, v in avg.items()})}")
+    finally:
+        del SETTINGS["synthetic-10s"]
+    model.text_ranker = None
+    del model, inner, timed_separate, ranker, judge, metrics
+    torch.cuda.empty_cache()
+
+    wcfg = aes.cfg.wavlm
+    log(f"[eval] WavLM encode alone (fp32, {wcfg.num_layers} x {wcfg.hidden_size}): 8 chunks "
+        f"of 10 s at 16 kHz")
+    wav = torch.randn(8, 160_000, generator=torch.Generator(device=DEVICE).manual_seed(8),
+                      device=DEVICE) * 0.1
+    mask = torch.ones(8, 160_000, dtype=torch.bool, device=DEVICE)
+    with torch.inference_mode():
+        frames = wavlm_encode(aes.params["wavlm"], wcfg, wav, mask,
+                              compute_dtype=torch.float32).shape[1]
+        rec["wavlm_encode_ms"] = time_ms(lambda: wavlm_encode(
+            aes.params["wavlm"], wcfg, wav, mask, compute_dtype=torch.float32), iters=3, warmup=1)
+    log(f"  {frames} frames a chunk; {rec['wavlm_encode_ms']:.2f} ms (CUDA events, mean of 3)")
+    del aes, wav, mask
+    torch.cuda.empty_cache()
+
+    target, video, host_score = imagebind_pair
+    log("[eval] ImageBind metric (imagebind_huge widths, random, seed 0) on phase 12's winner")
+    metric = TimedMetric(ImageBind(model=ImageBindHugeModel.init_random(
+        ImageBindHugeConfig(), seed=0, device=DEVICE)))
+    score = metric(target_wavs=[target], videos=[video],
+                   target_wavs_sample_rate=cfg.audio_codec.sample_rate)["ImageBind"][0]
+    diff = abs(score - host_score)
+    log(f"  metric {score:.6f}, phase 12's host ranking score {host_score:.6f}, |diff| "
+        f"{diff:.3e}; {metric.ms[0]:.1f} ms")
+    require(diff <= 1e-3 + 1e-3 * abs(host_score),
+            "eval ImageBind: the metric differs from the host ranking path's score")
+    rec["imagebind"] = {"score": score, "host_score": host_score, "ms": metric.ms[0]}
+    del metric
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _wav_bytes(x, sr):
     import io
     import wave
@@ -1968,6 +2210,9 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    # 16. the eval harness: card vs CPU, run_eval at full width, ImageBind
+    evaluation = eval_phase(cfg, tok, proc, n_layers, nfe, visual.pop("imagebind_pair"))
+
     def entry(res, source, replaces, launches, ms, plain, lib, bms, by, dev, lib_dev):
         # "tpu_source", "max_err" and "kernel_ms" repeat "replaces",
         # "max_abs_err" and "ms" under a second set of names that readers use
@@ -2009,7 +2254,7 @@ def main() -> int:
                "rerank_k8_10s": rerank, "stream_60s": stream, "judge_k8_10s": judge,
                "int4_10s": int4, "int8_10s": int8, "visual_10s": visual,
                "visual_stream_30s": visual_stream, "spans_10s": spans, "serve": serve,
-               "power": smi}
+               "eval": evaluation, "power": smi}
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "summary": summary,

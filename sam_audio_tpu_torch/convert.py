@@ -1,10 +1,11 @@
 """Reference checkpoints -> the parameter trees of the port.
 
 Counterpart of the converters of the JAX package (sam_audio_tpu/checkpoint.py,
-models/{clap,htsat,roberta,modernbert,pe_clip,imagebind,span_predictor}.py): a torch state
-dict (`checkpoint.pt`, or a tower's own `.pt`) becomes the nested tree of
-numpy arrays that `checkpoint.params_from_numpy` takes and that the JAX
-package's `save_params` / `load_params` write and read. Numpy only: the same
+models/{clap,htsat,roberta,modernbert,pe_clip,imagebind,span_predictor,wavlm,
+aesthetics}.py): a torch state dict (`checkpoint.pt`, or a tower's own `.pt`)
+becomes the nested tree of numpy arrays that `checkpoint.params_from_numpy`
+takes and that the JAX package's `save_params` / `load_params` write and
+read. Numpy only: the same
 keys, the same storage conventions (layers stacked on axis 0, weight norm
 folded, DiT attention heads permuted to the contiguous split, RoPE q/k
 channels deinterleaved), and dtypes as the JAX converters give them (float64
@@ -26,6 +27,8 @@ Command line (the towers the port has; no hub, no network):
         --out pe_clip.npz
     python -m sam_audio_tpu_torch.convert span-predictor --torch pe-a-frame-large.pt \\
         --out SNAPSHOT/span_predictor
+    python -m sam_audio_tpu_torch.convert aesthetics --torch audiobox_aesthetics.pt \\
+        --out aes_dir [--verify]
 """
 
 from __future__ import annotations
@@ -1024,6 +1027,210 @@ def convert_imagebind_state_dict(sd, cfg):
 
 
 # ---------------------------------------------------------------------------
+# The eval towers: WavLM (models/wavlm.py:272-396) and audiobox-aesthetics
+# (models/aesthetics.py:247-345)
+# ---------------------------------------------------------------------------
+
+
+def convert_wavlm_state_dict(sd, cfg, prefix: str = ""):
+    """An HF `WavLMModel` state dict -> models/wavlm.py's tree. Returns
+    (params, unconverted). Takes both weight-norm spellings of the positional
+    conv (weight_g / weight_v and torch >= 2.1's
+    parametrizations.weight.original0 / original1) and folds it."""
+    sub = {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+    consumed = set()
+
+    def g(k):
+        consumed.add(k)
+        return _arr(sub[k])
+
+    def lin(base):
+        p = {"weight": g(f"{base}.weight")}
+        if f"{base}.bias" in sub:
+            p["bias"] = g(f"{base}.bias")
+        return p
+
+    def ln(base):
+        return {"weight": g(f"{base}.weight"), "bias": g(f"{base}.bias")}
+
+    # "layer" extractors (wavlm-large) have a layer_norm on EVERY conv;
+    # "group" (base) names its single conv-0 GroupNorm "layer_norm" too:
+    # told apart by whether conv 1 carries one
+    layer_mode = "feature_extractor.conv_layers.1.layer_norm.weight" in sub
+    convs = []
+    for i in range(len(cfg.conv_dim)):
+        base = f"feature_extractor.conv_layers.{i}"
+        conv = {"weight": g(f"{base}.conv.weight")}
+        if f"{base}.conv.bias" in sub:
+            conv["bias"] = g(f"{base}.conv.bias")
+        if f"{base}.layer_norm.weight" in sub:
+            conv["layer_norm" if layer_mode else "group_norm"] = ln(f"{base}.layer_norm")
+        convs.append(conv)
+
+    pc = "encoder.pos_conv_embed.conv"
+    if f"{pc}.weight_g" in sub:
+        wg, wv = g(f"{pc}.weight_g"), g(f"{pc}.weight_v")
+    else:
+        wg = g(f"{pc}.parametrizations.weight.original0")
+        wv = g(f"{pc}.parametrizations.weight.original1")
+
+    layers = []
+    for i in range(cfg.num_layers):
+        base = f"encoder.layers.{i}"
+        att = {name: lin(f"{base}.attention.{name}")
+               for name in ("q_proj", "k_proj", "v_proj", "out_proj")}
+        att["gru_rel_pos_const"] = g(f"{base}.attention.gru_rel_pos_const")
+        att["gru_rel_pos_linear"] = lin(f"{base}.attention.gru_rel_pos_linear")
+        if f"{base}.attention.rel_attn_embed.weight" in sub:
+            att["rel_attn_embed"] = g(f"{base}.attention.rel_attn_embed.weight")
+        layers.append({
+            "attention": att,
+            "layer_norm": ln(f"{base}.layer_norm"),
+            "intermediate_dense": lin(f"{base}.feed_forward.intermediate_dense"),
+            "output_dense": lin(f"{base}.feed_forward.output_dense"),
+            "final_layer_norm": ln(f"{base}.final_layer_norm"),
+        })
+
+    params = {
+        "feature_extractor": convs,
+        "feature_projection": {"layer_norm": ln("feature_projection.layer_norm"),
+                               "projection": lin("feature_projection.projection")},
+        "pos_conv": {"weight": fold_weight_norm(wg, wv, dim=2), "bias": g(f"{pc}.bias")},
+        "encoder_layer_norm": ln("encoder.layer_norm"),
+        "layers": layers,
+    }
+    unconverted = sorted(prefix + k for k in sub
+                         if k not in consumed and "masked_spec_embed" not in k)
+    return params, unconverted
+
+
+# Fairseq / original-microsoft WavLM naming -> HF naming. The audiobox-
+# aesthetics checkpoint vendors the original module (self_attn.grep_linear /
+# grep_a, fc1 / fc2, post_extract_proj, conv_layers as Sequentials), which
+# maps 1:1 onto the HF layout.
+_FAIRSEQ_RENAMES = (
+    (".self_attn.grep_linear", ".attention.gru_rel_pos_linear"),
+    (".self_attn.grep_a", ".attention.gru_rel_pos_const"),
+    (".self_attn.relative_attention_bias", ".attention.rel_attn_embed"),
+    (".self_attn.q_proj", ".attention.q_proj"),
+    (".self_attn.k_proj", ".attention.k_proj"),
+    (".self_attn.v_proj", ".attention.v_proj"),
+    (".self_attn.out_proj", ".attention.out_proj"),
+    (".self_attn_layer_norm", ".layer_norm"),
+    (".fc1", ".feed_forward.intermediate_dense"),
+    (".fc2", ".feed_forward.output_dense"),
+)
+
+
+def fairseq_wavlm_to_hf_keys(sd):
+    """Rename a fairseq / original-WavLM state dict into the HF key layout
+    that convert_wavlm_state_dict takes. Unknown keys pass through unchanged
+    (and then show up as unconverted)."""
+    out = {}
+    for k, v in sd.items():
+        # the extractor's Sequentials: conv_layers.i.0 = conv,
+        # conv_layers.i.2 = the (Fp32)GroupNorm / LayerNorm
+        nk = re.sub(r"feature_extractor\.conv_layers\.(\d+)\.0\.",
+                    r"feature_extractor.conv_layers.\1.conv.", k)
+        nk = re.sub(r"feature_extractor\.conv_layers\.(\d+)\.2\.",
+                    r"feature_extractor.conv_layers.\1.layer_norm.", nk)
+        nk = nk.replace("post_extract_proj.", "feature_projection.projection.")
+        if nk.startswith("layer_norm."):
+            nk = "feature_projection.layer_norm." + nk[len("layer_norm."):]
+        nk = nk.replace("encoder.pos_conv.0.", "encoder.pos_conv_embed.conv.")
+        for a, b in _FAIRSEQ_RENAMES:
+            nk = nk.replace(a, b)
+        out[nk] = v
+    return out
+
+
+AES_AXES = ("CE", "CU", "PC", "PQ")
+
+
+def _natural_key(key: str):
+    """Numeric-aware sort: 'proj_CE.2.weight' before 'proj_CE.10.weight'."""
+    return [int(s) if s.isdigit() else s for s in key.split(".")]
+
+
+def convert_aes_checkpoint(path: str, cfg):
+    """An audiobox-aesthetics torch checkpoint -> (params, unconverted, cfg)
+    of models/aesthetics.AudioboxAesthetics. The layout is sniffed: a WavLM
+    tower (HF or fairseq naming) under a wrapper prefix ("model.",
+    "module.", ...) and per-axis heads (keys carrying the axis token, e.g.
+    `proj_CE.*` or `heads.CE.*`, their linears in numeric order). The
+    WavLM config takes the checkpoint's layout (a LayerNorm on every
+    extractor conv is wavlm-large's pre-LN layout) and keeps `cfg`'s
+    widths. target_transform's mean / std come
+    from the checkpoint's dict when present. Keys that neither tower nor
+    heads read come back in `unconverted` (fail loudly)."""
+    import dataclasses
+
+    import torch
+
+    blob = torch.load(path, map_location="cpu", weights_only=False)
+    tt = None
+    sd = blob
+    if isinstance(blob, dict) and not all(hasattr(v, "shape") for v in blob.values()):
+        for key in ("state_dict", "model", "model_state_dict"):
+            if key in blob:
+                sd = blob[key]
+                break
+        tt = blob.get("target_transform")
+    sd = {k: (v.detach().cpu().float().numpy() if v.dtype == torch.bfloat16
+              else v.detach().cpu().numpy()) if isinstance(v, torch.Tensor) else np.asarray(v)
+          for k, v in sd.items()}
+
+    marker = "feature_extractor.conv_layers"
+    hit = next((k for k in sd if marker in k), None)
+    if hit is None:
+        raise ValueError("no WavLM feature extractor found in checkpoint")
+    wrapper = hit.split(marker)[0]
+
+    axis_re = re.compile(r"(?:^|\.|_)(CE|CU|PC|PQ)(?:$|\.|_)", re.IGNORECASE)
+    head_keys = {k: v for k, v in sd.items() if axis_re.search(k)}
+    tower_keys = {k[len(wrapper):]: v for k, v in sd.items()
+                  if k.startswith(wrapper) and k not in head_keys}
+
+    renamed = fairseq_wavlm_to_hf_keys(tower_keys)
+    layer_mode = "feature_extractor.conv_layers.1.layer_norm.weight" in renamed
+    if layer_mode != (cfg.wavlm.feat_extract_norm == "layer"):
+        cfg = dataclasses.replace(cfg, wavlm=dataclasses.replace(
+            cfg.wavlm, feat_extract_norm="layer" if layer_mode else "group",
+            do_stable_layer_norm=layer_mode))
+    wavlm_params, unconverted = convert_wavlm_state_dict(renamed, cfg.wavlm)
+    if unconverted:   # back to the checkpoint's own spelling
+        back = {nk: ok for ok, nk in zip(tower_keys, fairseq_wavlm_to_hf_keys(
+            dict.fromkeys(tower_keys)))}
+        unconverted = [wrapper + back.get(k, k) for k in unconverted]
+
+    heads = {}
+    for ax in AES_AXES:
+        ax_keys = sorted((k for k in head_keys
+                          if axis_re.search(k).group(1).upper() == ax
+                          and k.endswith(".weight")), key=_natural_key)
+        layers = []
+        for wk in ax_keys:
+            lin = {"weight": _arr(head_keys[wk])}
+            bk = wk[: -len(".weight")] + ".bias"
+            if bk in head_keys:
+                lin["bias"] = _arr(head_keys[bk])
+            layers.append(lin)
+        if layers:
+            heads[ax] = layers
+    if set(heads) != set(AES_AXES):
+        raise ValueError(f"no projection head found for axes {sorted(set(AES_AXES) - set(heads))}")
+    unconverted += [k for k in head_keys if not k.endswith((".weight", ".bias"))]
+    # keys outside both partitions (neither tower nor head)
+    unconverted += [k for k in sd if not k.startswith(wrapper) and k not in head_keys]
+
+    params = {"wavlm": wavlm_params, "heads": heads}
+    if isinstance(tt, dict):
+        params["target_transform"] = {ax: {"mean": float(v["mean"]), "std": float(v["std"])}
+                                      for ax, v in tt.items() if ax in AES_AXES}
+    return params, sorted(unconverted), cfg
+
+
+# ---------------------------------------------------------------------------
 # Files
 # ---------------------------------------------------------------------------
 
@@ -1154,6 +1361,39 @@ def _convert_span_predictor(argv):
           "for load_sam_audio to attach)")
 
 
+def _convert_aesthetics(argv):
+    """An audiobox-aesthetics checkpoint -> `--out`/params.npz + config.json
+    (AudioboxAestheticsConfig with its `wavlm` sub-config), the layout the
+    JAX package's scripts/convert_checkpoint.py writes and
+    AudioboxAesthetics.from_pretrained reads. --verify scores one second of
+    silence on the CPU."""
+    import dataclasses
+
+    from sam_audio_tpu_torch.checkpoint import save_params
+    from sam_audio_tpu_torch.models.aesthetics import AudioboxAesthetics, AudioboxAestheticsConfig
+
+    ap = argparse.ArgumentParser(prog="python -m sam_audio_tpu_torch.convert aesthetics")
+    ap.add_argument("--torch", required=True, help="the audiobox-aesthetics torch checkpoint")
+    ap.add_argument("--out", required=True, help="the directory to write")
+    ap.add_argument("--verify", action="store_true",
+                    help="score one second of silence with the converted weights (CPU)")
+    args = ap.parse_args(argv)
+    params, unconverted, cfg = convert_aes_checkpoint(args.torch, AudioboxAestheticsConfig())
+    if unconverted:
+        raise SystemExit(f"unconverted audiobox-aesthetics keys: {unconverted[:20]}")
+    os.makedirs(args.out, exist_ok=True)
+    save_params(os.path.join(args.out, "params.npz"), params)
+    with open(os.path.join(args.out, "config.json"), "w") as fout:
+        json.dump(dataclasses.asdict(cfg), fout, indent=2)
+    print(f"wrote {args.out}/params.npz + config.json (for Aesthetic(checkpoint=...))")
+    if args.verify:
+        model = AudioboxAesthetics.from_pretrained(args.out, device="cpu")
+        scores = model([np.zeros(cfg.sample_rate, np.float32)], cfg.sample_rate)[0]
+        if not all(np.isfinite(v) for v in scores.values()):
+            raise SystemExit(f"verify: non-finite scores {scores}")
+        print("verify: aesthetics scores finite", scores)
+
+
 TOWER_COMMANDS = ("clap", "imagebind", "pe-clip")
 
 
@@ -1161,6 +1401,8 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "span-predictor":
         return _convert_span_predictor(argv[1:])
+    if argv and argv[0] == "aesthetics":
+        return _convert_aesthetics(argv[1:])
     if argv and argv[0] in TOWER_COMMANDS:
         return _convert_tower(argv[0], argv[1:])
     ap = argparse.ArgumentParser(prog="python -m sam_audio_tpu_torch.convert")

@@ -483,3 +483,143 @@ def center_span_head(predictors, logits, mask, scale: float = 1.0) -> float:
         head["weight"] = head["weight"] * scale
         head["bias"] = head["bias"] * scale - shift
     return shift
+
+
+def wavlm_init(cfg, generator: torch.Generator, device):
+    """models/wavlm.py's tree (WavLMConfig), random, fp32: the extractor's
+    convs (a GroupNorm after conv 0, or bias and LayerNorm on every conv in
+    the "layer" layout), the projection, the positional conv, the layers as
+    a list with the bucketed bias table in layer 0 only."""
+    ini = _Init(generator, device)
+    h, nh = cfg.hidden_size, cfg.num_heads
+    convs, cin = [], 1
+    for i, (c, k) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel)):
+        conv = {"weight": ini.normal((c, cin, k), 0.02)}
+        if cfg.feat_extract_norm == "layer":
+            conv["bias"] = ini.const((c,), 0.0)
+            conv["layer_norm"] = ini.affine(c)
+        elif i == 0:
+            conv["group_norm"] = ini.affine(c)
+        convs.append(conv)
+        cin = c
+
+    def layer(first):
+        att = {n: ini.linear(h, h) for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+        att["gru_rel_pos_const"] = ini.const((1, nh, 1, 1), 1.0)
+        att["gru_rel_pos_linear"] = ini.linear(h // nh, 8)
+        if first:
+            att["rel_attn_embed"] = ini.normal((cfg.num_buckets, nh), 0.02)
+        return {"attention": att, "layer_norm": ini.affine(h),
+                "intermediate_dense": ini.linear(h, cfg.intermediate_size),
+                "output_dense": ini.linear(cfg.intermediate_size, h),
+                "final_layer_norm": ini.affine(h)}
+
+    return {
+        "feature_extractor": convs,
+        "feature_projection": {"layer_norm": ini.affine(cfg.conv_dim[-1]),
+                               "projection": ini.linear(cfg.conv_dim[-1], h)},
+        "pos_conv": {"weight": ini.normal((h, h // cfg.num_conv_pos_embedding_groups,
+                                           cfg.num_conv_pos_embeddings), 0.02),
+                     "bias": ini.const((h,), 0.0)},
+        "encoder_layer_norm": ini.affine(h),
+        "layers": [layer(i == 0) for i in range(cfg.num_layers)],
+    }
+
+
+def audiobox_aesthetics_init(cfg, generator: torch.Generator, device):
+    """models/aesthetics.AudioboxAesthetics' tree, random, fp32: a WavLM
+    tower and, per axis, a two-linear head (hidden -> hidden -> 1); no
+    target_transform."""
+    from sam_audio_tpu_torch.models.aesthetics import AXES
+
+    tower = wavlm_init(cfg.wavlm, generator, device)
+    ini = _Init(generator, device)
+    h = cfg.wavlm.hidden_size
+    return {"wavlm": tower,
+            "heads": {ax: [ini.linear(h, h), ini.linear(h, 1)] for ax in AXES}}
+
+
+def aesthetics_init(cfg, generator: torch.Generator, device):
+    """models/aesthetics.AesPredictor's tree (AestheticsConfig), random,
+    fp32: mel projection, a PE-AV tower, the 4-way head and its mean / std."""
+    ini = _Init(generator, device)
+    tf = PEAVTransformerConfig(hidden_size=cfg.hidden, num_layers=cfg.layers,
+                               num_heads=cfg.heads)
+    return {"mel_proj": ini.linear(cfg.n_mels, cfg.hidden),
+            "transformer": peav_init(tf, ini),
+            "head": ini.linear(cfg.hidden, 4),
+            "mean": ini.const((4,), 5.0),   # the axes live on a ~1-10 scale
+            "std": ini.const((4,), 1.0)}
+
+
+def inject_noise(model, channels: int):
+    """Wrap `model.separate` to pass noise drawn on the host from the batch
+    itself (its descriptions and frame count), so that two runs of the same
+    batches draw the same numbers: a model on the card and its copy on the
+    CPU, the port and the JAX package, or one rank and many. Returns the
+    model."""
+    import zlib
+
+    import numpy as np
+
+    inner = model.separate
+
+    def separate(batch, **kw):
+        t = batch.anchor_alignment.shape[-1]
+        seed = zlib.crc32(("|".join(batch.descriptions) + f"/{t}").encode())
+        noise = np.random.RandomState(seed).randn(len(batch.descriptions), t, channels)
+        return inner(batch, noise=noise.astype(np.float32), **kw)
+
+    model.separate = separate
+    return model
+
+
+def small_eval_metrics(codec: DACVAEConfig, device) -> dict:
+    """Eval metrics on small random towers, made from seeds on the CPU and
+    moved to `device`, so that runs on two devices score with the same
+    weights: {"judge": a Judge on `codec` (whose widths kernel 3 takes),
+    "aesthetic-predictor": the AesPredictor stand-in, "aesthetic-audiobox":
+    an AudioboxAesthetics (WavLM 64 x 2, 4 heads, a 32-channel extractor),
+    "clap": a CLAP}. The two Aesthetic metrics report the same keys, so a
+    run takes one of them."""
+    from sam_audio_tpu_torch.eval.metrics import CLAP, Aesthetic, Judge
+    from sam_audio_tpu_torch.models.aesthetics import (
+        AesPredictor, AestheticsConfig, AudioboxAesthetics, AudioboxAestheticsConfig)
+    from sam_audio_tpu_torch.models.clap import ClapConfig, ClapModel
+    from sam_audio_tpu_torch.models.judge import SAMAudioJudgeModel
+    from sam_audio_tpu_torch.models.wavlm import WavLMConfig
+    from sam_audio_tpu_torch.processor import SAMAudioJudgeProcessor
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+    from sam_audio_tpu_torch.utils import tree_map
+
+    def moved(tree):
+        return tree_map(lambda x: x.to(device), tree)
+
+    jcfg = SAMAudioJudgeConfig(
+        audio_codec=codec, transformer=PEAVTransformerConfig(hidden_size=64, num_layers=2,
+                                                             num_heads=2),
+        finetune_transformer=PEAVTransformerConfig(hidden_size=32, num_layers=1, num_heads=2),
+        text_model=ModernBertTextConfig(vocab_size=512, hidden_size=64, num_hidden_layers=3,
+                                        num_attention_heads=2, intermediate_size=96,
+                                        global_attn_every_n_layers=3, local_attention=8),
+        nth_text_layer=2, bottleneck_dim=32, compute_dtype="float32")
+    judge = SAMAudioJudgeModel.init_random(jcfg, seed=1, device="cpu")
+    acfg = AestheticsConfig(sample_rate=codec.sample_rate, n_fft=128, hop_length=64, n_mels=16,
+                            hidden=32, layers=2, heads=2)
+    aes = AesPredictor.init_random(acfg, seed=2, device="cpu")
+    bcfg = AudioboxAestheticsConfig(wavlm=WavLMConfig(
+        hidden_size=64, num_layers=2, num_heads=4, intermediate_size=96, conv_dim=(32,) * 7,
+        num_buckets=40, num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4))
+    box = AudioboxAesthetics.init_random(bcfg, seed=4, device="cpu")
+    ccfg = ClapConfig(sample_rate=codec.sample_rate, duration_s=1.0, n_fft=512, hop_length=400,
+                      n_mels=16, fmin=50.0, fmax=3500.0, spec_size=64, patch_size=4,
+                      audio_embed_dim=16, depths=(2, 2), audio_heads=(2, 4), window_size=4,
+                      text_vocab=300, text_hidden=32, text_layers=2, text_heads=4,
+                      text_intermediate=48, max_text_len=12, embed_dim=8)
+    clap = ClapModel.init_random(ccfg, seed=3, device="cpu")
+    return {"judge": Judge(model=SAMAudioJudgeModel(jcfg, moved(judge.params), device=device),
+                           processor=SAMAudioJudgeProcessor(codec.hop_length, codec.sample_rate,
+                                                            ByteFallbackTokenizer(512))),
+            "aesthetic-predictor": Aesthetic(model=AesPredictor(acfg, moved(aes.params))),
+            "aesthetic-audiobox": Aesthetic(model=AudioboxAesthetics(bcfg, moved(box.params))),
+            "clap": CLAP(model=ClapModel(ccfg, moved(clap.params), ByteFallbackTokenizer(300)))}

@@ -514,6 +514,48 @@ def test_cuda_batcher_serves_a_request(cuda):
     assert batcher.stats_snapshot()["requests"] == 1
 
 
+@pytest.mark.cuda
+def test_cuda_eval_run_like_the_cpu(cuda, monkeypatch, tmp_path):
+    """run_eval of a small model on the card and on the CPU, with the same
+    injected noise and metric towers (2 items of 0.2 s: 200 frames, kernel
+    1; kernel 3 in the codec and the judge's encoder), scored once by the
+    Judge, the AesPredictor stand-in and CLAP, and once by an
+    AudioboxAesthetics (the WavLM tower): the averaged metrics agree within
+    2e-3."""
+    from sam_audio_tpu_torch import SAMAudioProcessor
+    from sam_audio_tpu_torch.eval import main as eval_main
+    from sam_audio_tpu_torch.eval.datasets import SyntheticBench
+    from sam_audio_tpu_torch.eval.settings import SETTINGS
+    from sam_audio_tpu_torch.models.init import inject_noise, small_eval_metrics
+
+    gpu, cpu = _small_span_model(cuda)
+    gpu.span_predictor = cpu.span_predictor = None
+    codec = gpu.cfg.audio_codec
+    monkeypatch.setitem(SETTINGS, "synthetic-card", (SyntheticBench,
+                                                     {"seconds": 0.2, "num_items": 2}))
+    runs = (("judge", "aesthetic-predictor", "clap"), ("aesthetic-audiobox",))
+    res = {}
+    for dev, model in ((cuda, gpu), ("cpu", cpu)):
+        inject_noise(model, 2 * codec.codebook_dim)
+        metrics = small_eval_metrics(codec, dev)
+        for names in runs:
+            n1, n3 = fused_glue_attention.launches, fused_residual_unit.launches
+            res[str(dev), names] = eval_main.run_eval(
+                ["synthetic-card"], cache_path=str(tmp_path), batch_size=2, checkpoint_path="",
+                reranking_candidates=1, model=model,
+                processor=SAMAudioProcessor(codec.hop_length, codec.sample_rate),
+                metrics=[metrics[n] for n in names], output_dir=str(tmp_path / str(dev)),
+                device=dev)["synthetic-card"]
+            if dev is cuda and names == runs[0]:
+                assert fused_glue_attention.launches - n1 == 2 * 32
+                assert fused_residual_unit.launches - n3 == 6 + 2 * 6 + 6
+    for names, n_keys in zip(runs, (9, 4)):
+        card, host = res[str(cuda), names], res["cpu", names]
+        assert card.keys() == host.keys() and len(host) == n_keys
+        for k, v in host.items():
+            assert abs(card[k] - v) <= 2e-3 + 2e-3 * abs(v), (k, card[k], v)
+
+
 def test_cuda_is_refused_without_a_gpu(monkeypatch):
     """With no GPU, asking for the card raises for the PE tower and the
     ImageBind ranker alike (no silent CPU path). Runs anywhere: the missing
