@@ -16,6 +16,17 @@ Phases (any failure exits non-zero):
                plain version and one PyTorch library call as a yardstick, the
                kernel and the library call also with the host out of the
                window (`device_ms`: a CUDA graph of the calls, replayed).
+               Kernels 1 and 2 under autograd (their Functions: the kernel
+               forward, the plain version's VJP) at the training shapes
+               (kernel 1: B=4, T=250; kernel 2: B=1, T=1125; bf16 and fp32):
+               the Function's output against the plain version (bf16 2e-2,
+               fp32 1e-4), and dq, dk, dv (and kernel 1's norm weights'
+               gradients) against autograd of the plain version on the card,
+               exactly: the backward is the plain version's VJP, so this
+               holds the wiring, not a measured error; forward + backward
+               timed against the plain version and against SDPA forward +
+               backward after norm and RoPE; kernels 3 and 4 must raise
+               under grad and launch nothing.
   4. small   — a small model in fp32 through separate() on the card (the
                kernels) and on the CPU (the plain versions): must agree;
                then a clip past max_direct_seconds streamed through 3
@@ -102,6 +113,35 @@ Phases (any failure exits non-zero):
                8 x 10 s chunks timed; last the ImageBind metric on phase 12's
                winning target and video with the imagebind_huge tower, equal
                to phase 12's host ranking score of that pair.
+ 17. train   — training at full width: the default SAMAudioConfig (DiT 2048
+               x 16, 1.15B trainable parameters; T5-base; DAC-VAE 48 kHz),
+               fp32 master weights from seed 0, bf16 compute, dropout 0.1
+               from a seeded generator, remat="full". Eight 10 s examples
+               (mixture = target + residual, half with two anchors) through
+               ShardWriter -> ShardedRecordDataset -> iter_batches ->
+               FlowMatchingDataPipeline (kernel 3: 12 a batch of 4), the
+               Trainer (AdamW, warmup + cosine, EMA 0.999, batch 4) for 4
+               steps (kernel 1: 32 a step, 16 forward + 16 recomputed):
+               losses finite, every DiT leaf changed, codec and T5
+               bit-identical; each step, each batch's featurization and the
+               peak memory timed. A checkpoint at step 2 restored into a
+               fresh Trainer: its steps 3-4 within 1e-6 of the run's (step 4
+               under torch.profiler: device busy ms, idle share, kernel
+               groups). The EMA exported, loaded with load_sam_audio and
+               separated (k=1, 10 s). LoRA rank 16 over attention for 2
+               steps: only the adapters move, the merged model separates.
+               The native span predictor for 2 steps on the same records
+               (kernel 3: 12 a batch). Then
+               `python -m sam_audio_tpu_torch.train --synthetic 4
+               --random-init --config <small> --batch-size 2 --device cuda
+               --ckpt-dir ... --export-dir ...` must exit 0.
+Phase 4 also takes two Trainer steps of the small fp32 model (dropout 0, no
+warmup) on the card and on the CPU with the same t and x0, at 200 frames
+(kernel 1) and 1100 (kernel 2): every trainable leaf's gradient card vs CPU
+within 1e-4 of the leaf's largest, losses and parameters within 2e-3, every
+layer's wq and q_norm given a gradient on the card, 8 attention launches (2
+steps x 2 layers x forward and recomputation), and remat="dots" against
+"full".
 Phase 4 also attaches a narrow native span predictor to the small model:
 logits card vs CPU (2e-3), the same spans with no frame within 1e-3 of the
 threshold, separate(predict_spans=True) on both; its snapshot with
@@ -309,6 +349,7 @@ def check_fused_attention(results):
         log(f"  ({b}, 250, 16, 128) {dtype}: kernel {xms:.4f} ms (device {xdev:.4f}), SDPA "
             f"device {xlib:.4f} ms, bound {xb:.5f} ms ({xby})")
     results["extra"] = extra
+    check_fused_attention_grad(results)
     results.update(name="fused_glue_attention",
                    per_launch=(ms, plain, lib, bms, by, dev, lib_dev),
                    max_abs_err=max(errs), tolerance="bf16 atol 2e-2 + rtol 2e-2; "
@@ -356,6 +397,7 @@ def check_flash_attention(results):
     bms, by = bound_ms(flops, nbytes)
     log(f"  main shape (1, 1125, 16, 128) bf16: kernel {ms:.4f} ms (device {dev:.4f}), plain "
         f"{plain:.4f} ms, SDPA {lib:.4f} ms (device {lib_dev:.4f}), bound {bms:.5f} ms ({by})")
+    check_flash_attention_grad(results)
     results.update(name="flash_attention",
                    per_launch=(ms, plain, lib, bms, by, dev, lib_dev),
                    max_abs_err=max(errs), tolerance="bf16 atol 2e-2 + rtol 2e-2; "
@@ -470,6 +512,10 @@ def check_fused_conv(results):
         results["fp32_err"] = max(results.get("fp32_err", 0.0),
                                   check_close(f"fp32 C=64 T=3000 dil={dil}", out, ref,
                                               1e-4, 1e-4))
+    p = unit(64, seed=1)
+    xg = torch.randn(1, 64, 3000, generator=g, device=DEVICE, requires_grad=True)
+    check_refuses_grad("fused_residual_unit",
+                       lambda: fused_residual_unit(p, xg, 1, torch.bfloat16))
     _, by = bound_ms(totals["flops"], totals["bytes"])
     results.update(name="fused_residual_unit", totals=totals, bound_by=by,
                    max_abs_err=max(errs), per_shape=per_shape,
@@ -548,10 +594,137 @@ def check_matmul_int4(results, cfg):
             torch.cuda.synchronize()
             results["fp32_err"] = check_close(f"fp32 tokens=250 (out, in)=({out}, {din})", y,
                                               ref, 1e-4, 1e-4)
+            xg = x.to(torch.bfloat16).requires_grad_(True)
+            check_refuses_grad("matmul_int4", lambda: matmul_int4(xg, w4, s))
     _, by = bound_ms(totals["flops"], totals["bytes"])
     results.update(name="matmul_int4", totals=totals, bound_by=by, max_abs_err=max(errs),
                    per_shape=per_shape,
                    tolerance="bf16 atol 2e-2 + rtol 2e-2; fp32 atol 1e-4 + rtol 1e-4")
+
+
+def fwd_bwd(fn, inputs, w):
+    """One forward of fn(*inputs) and the backward of <out, w>: (out, grads)."""
+    import torch
+
+    out = fn(*inputs)
+    return out, torch.autograd.grad((out.float() * w).sum(), inputs)
+
+
+def check_attention_grad(results, name, launch, plain, library, make_inputs, shapes):
+    """A kernel's autograd Function (kernel forward, the plain version's VJP)
+    on the card: its forward output held against the plain version's at the
+    forward tolerance, its gradients against autograd of the plain version,
+    and forward + backward timed against the plain version's and against
+    SDPA's after norm and RoPE (the library yardstick, never on the path).
+    The gradients are equal by construction (the backward reruns the plain
+    version on the saved inputs and never reads the kernel's output), so
+    their check holds the Function's wiring (argument order, which inputs
+    get a gradient), not a measured error. `make_inputs(b, t, dtype)` ->
+    (inputs needing grad, the rest of the call's arguments, SDPA's leaf
+    inputs); `shapes`: (b, t, dtype, forward tolerance)."""
+    import torch
+
+    log(f"[kernels] {name}: gradients through its autograd Function")
+    record = {}
+    for b, t, dtype, tol in shapes:
+        inputs, rest, lib_inputs = make_inputs(b, t, dtype)
+        w = torch.randn(inputs[0].shape, generator=torch.Generator(device=DEVICE).manual_seed(t),
+                        device=DEVICE)
+        before = launch.launches
+        out, got = fwd_bwd(lambda *x: launch(*x, *rest), inputs, w)
+        require(launch.launches == before + 1, f"{name}: the gradient run launched "
+                f"{launch.launches - before} kernels, expected 1")
+        require(out.grad_fn is not None, f"{name}: the Function's output has no grad_fn")
+        ref_out, ref = fwd_bwd(lambda *x: plain(*x, *rest), inputs, w)
+        torch.cuda.synchronize()
+        fwd_err = check_close(f"forward {dtype} B={b} T={t}", out, ref_out, tol, tol)
+        # equal by construction: any difference is a wiring fault
+        err = max(check_close(f"grad {dtype} B={b} T={t} d{i}", a, r, 0.0, 0.0)
+                  for i, (a, r) in enumerate(zip(got, ref)))
+        require(all(bool(g.abs().max() > 0) for g in got), f"{name}: a zero gradient")
+        ms = time_ms(lambda: fwd_bwd(lambda *x: launch(*x, *rest), inputs, w), iters=10)
+        plain_ms = time_ms(lambda: fwd_bwd(lambda *x: plain(*x, *rest), inputs, w), iters=3)
+        lib_ms = time_ms(lambda: fwd_bwd(library, lib_inputs, w.transpose(1, 2)), iters=10)
+        h, d = inputs[0].shape[2], inputs[0].shape[3]
+        elem = inputs[0].element_size()
+        # forward 2 products, backward 4 (dV, dP, dQ, dK); q, k, v, dout read and
+        # out, dq, dk, dv written once
+        bms, by = bound_ms(12 * b * t * t * d * h, 8 * b * t * h * d * elem,
+                           PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+        key = f"{str(dtype).split('.')[-1]} B={b} T={t}"
+        record[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                           bound_by=by, forward_max_abs_err=fwd_err, forward_tolerance=tol,
+                           grad_max_abs_err=err,
+                           grad_check="structural: the backward is the plain version's VJP "
+                                      "on the saved inputs; exact equality holds the wiring")
+        log(f"  forward + backward {key}: Function {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"SDPA {lib_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+    results["fwd_bwd"] = record
+
+
+def check_fused_attention_grad(results):
+    """Kernel 1 at the training shape (B=4, T=250, H=16, D=128: one 10 s
+    crop batch of 4), bf16 and fp32; q, k, v, both norm weights."""
+    import torch
+    import torch.nn.functional as F
+
+    from sam_audio_tpu_torch.ops.fused_attention import (
+        _norm_rope, fused_glue_attention, fused_glue_attention_plain)
+    from sam_audio_tpu_torch.ops.rope import precompute_rope
+
+    cos, sin = precompute_rope(128, 512, 20000, device=DEVICE)
+
+    def make(b, t, dtype):
+        q, k, v, mask = _attn_inputs(b, t, 16, 128, dtype, seed=b + t)
+        g = torch.Generator(device=DEVICE).manual_seed(3)
+        qw, kw = (1 + 0.1 * torch.randn(128, generator=g, device=DEVICE) for _ in range(2))
+        inputs = [x.requires_grad_(True) for x in (q, k, v, qw, kw)]
+        lib = [_norm_rope(x.detach(), wt.detach(), cos, sin, 1e-5).transpose(1, 2)
+               .requires_grad_(True) for x, wt in ((q, qw), (k, kw))]
+        lib.append(v.detach().transpose(1, 2).requires_grad_(True))
+        return inputs, (cos, sin, mask), lib
+
+    check_attention_grad(results, "fused_glue_attention", fused_glue_attention,
+                         fused_glue_attention_plain, F.scaled_dot_product_attention, make,
+                         ((4, 250, torch.bfloat16, 2e-2), (4, 250, torch.float32, 1e-4)))
+
+
+def check_flash_attention_grad(results):
+    """Kernel 2 at a training example over 40 s (B=1, T=1125), bf16 and
+    fp32; q, k, v."""
+    import torch
+    import torch.nn.functional as F
+
+    from sam_audio_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+
+    def make(b, t, dtype):
+        q, k, v, mask = _attn_inputs(b, t, 16, 128, dtype, seed=t + 1, masked_rows=False)
+        inputs = [x.requires_grad_(True) for x in (q, k, v)]
+        lib = [x.detach().transpose(1, 2).requires_grad_(True) for x in (q, k, v)]
+        return inputs, (mask,), lib
+
+    check_attention_grad(results, "flash_attention", flash_attention, flash_attention_plain,
+                         F.scaled_dot_product_attention, make,
+                         ((1, 1125, torch.bfloat16, 2e-2), (1, 1125, torch.float32, 1e-4)))
+
+
+def check_refuses_grad(name, call):
+    """A kernel without a gradient must raise under autograd, not return a
+    tensor cut from the graph, and launch nothing."""
+    import torch
+
+    fn = {fn.__name__: fn for fn in kernel_wrappers()}[name]
+    before = fn.launches
+    try:
+        call()
+    except RuntimeError as e:
+        require("no gradient" in str(e), f"{name}: raised {e!r}")
+        require(fn.launches == before, f"{name}: launched under grad")
+        log(f"  {name} under grad: raises RuntimeError, no launch -> ok")
+        return
+    finally:
+        torch.cuda.synchronize()
+    raise AssertionError(f"{name}: returned a tensor under grad instead of raising")
 
 
 # ---------------------------------------------------------------------------
@@ -2068,6 +2241,407 @@ def eval_phase(cfg, tok, proc, n_layers, nfe, imagebind_pair):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Training: phase 4's card-vs-CPU check and phase 17 at full width
+# ---------------------------------------------------------------------------
+
+
+def small_training():
+    """Two Trainer steps of the small fp32 model (dropout 0) on the card and
+    on the CPU with the same t and x0, at 200 frames (kernel 1) and 1100
+    (kernel 2). First the loss's gradient at the initial parameters, every
+    trainable leaf card vs CPU within 1e-4 of that leaf's largest CPU
+    gradient (a zero, rescaled or sign-flipped gradient fails it), and every
+    layer's wq and q_norm given a gradient on the card (a wrapper that cut
+    the graph would leave them at zero). Then the steps, with no warmup so
+    that both move the parameters: losses and updated parameters within
+    2e-3, each step's attention launches exact. Then the "dots" remat
+    policy's gradients against "full"'s on the card."""
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch.models.init import sam_audio_init
+    from sam_audio_tpu_torch.train.flow_matching import Trainer, flow_matching_loss
+    from sam_audio_tpu_torch.utils import tree_leaves_with_path, tree_map
+
+    log("[small train] fp32 Trainer steps on the card vs on the CPU")
+    cfg = small_config()
+    n_layers = cfg.transformer.n_layers
+    params = sam_audio_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    kw = dict(learning_rate=1e-3, lr_schedule="cosine", warmup_steps=0, total_steps=3,
+              ema_decay=0.9, remat="full")
+    rng = np.random.RandomState(3)
+    record = {}
+    for frames, kernel in ((200, "fused_glue_attention"), (1100, "flash_attention")):
+        c2 = 2 * cfg.audio_codec.codebook_dim
+        pad = np.ones((2, frames), bool)
+        pad[1, frames * 4 // 5:] = False
+        batch = {"audio_features": rng.randn(2, frames, c2).astype(np.float32),
+                 "target_latents": rng.randn(2, frames, c2).astype(np.float32),
+                 "text_features": rng.randn(2, 7, cfg.text_encoder.dim).astype(np.float32),
+                 "text_mask": np.ones((2, 7), bool),
+                 "anchor_ids": np.array([[0, 3, 1, 3], [0, 3, 3, 3]]),
+                 "anchor_alignment": np.where(pad, 0, 1), "audio_pad_mask": pad}
+        host_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        card_batch = tree_map(lambda x: x.to(DEVICE), host_batch)
+        draws = [(torch.from_numpy(rng.rand(2).astype(np.float32)),
+                  torch.from_numpy(rng.randn(2, frames, c2).astype(np.float32)))
+                 for _ in range(2)]
+        card = Trainer(cfg, tree_map(lambda x: x.to(DEVICE), params), device=DEVICE, **kw)
+        host = Trainer(cfg, tree_map(lambda x: x.clone(), params), device="cpu", **kw)
+        names = [p for p, x in tree_leaves_with_path(card.state.params) if x.requires_grad]
+        grads = {}
+        for side, trainer, b, dev in (("card", card, card_batch, DEVICE),
+                                      ("host", host, host_batch, "cpu")):
+            loss = flow_matching_loss(trainer.state.params, cfg, b, t=draws[0][0].to(dev),
+                                      x0=draws[0][1].to(dev))
+            grads[side] = dict(zip(names, torch.autograd.grad(loss, trainer.state.trainable,
+                                                             allow_unused=True)))
+        grad_err = 0.0
+        for name in names:
+            gc, gh = grads["card"][name], grads["host"][name]
+            require((gc is None) == (gh is None),
+                    f"small train T={frames}: {name} has a gradient on one device only")
+            if gh is None:
+                continue
+            scale = float(gh.abs().max())
+            err = float((gc.cpu() - gh).abs().max())
+            require(err <= 1e-4 * scale, f"small train T={frames}: the gradient of {name} "
+                    f"disagrees card vs CPU ({err:.3e} > 1e-4 x {scale:.3e})")
+            grad_err = max(grad_err, err / scale if scale else 0.0)
+        g_wq = grads["card"]["transformer/layers/attention/wq/weight"]
+        g_qn = grads["card"]["transformer/layers/attention/q_norm/weight"]
+        for i in range(n_layers):
+            require(bool(g_wq[i].abs().max() > 0) and bool(g_qn[i].abs().max() > 0),
+                    f"small train: layer {i}'s self-attention got no gradient on the card")
+        reset_counts()
+        losses = []
+        for t, x0 in draws:
+            a = card.step(card_batch, t=t.to(DEVICE), x0=x0.to(DEVICE))
+            b = host.step(host_batch, t=t, x0=x0)
+            losses.append((float(a["loss"]), float(b["loss"])))
+        counts = read_counts()
+        # per step: each layer's forward and its recomputation under remat="full"
+        expect = {name: 0 for name in counts}
+        expect[kernel] = 2 * 2 * n_layers
+        require(counts == expect, f"small train T={frames}: launches {counts}, expected {expect}")
+        ref = dict(tree_leaves_with_path(host.state.params))
+        worst = max(float((x.detach().cpu() - ref[p].detach()).abs().max())
+                    for p, x in tree_leaves_with_path(card.state.params))
+        loss_err = max(abs(a - b) for a, b in losses)
+        log(f"  T={frames}: gradients card vs CPU within {grad_err:.3e} of each leaf's largest; "
+            f"losses card/CPU {losses}, launches {counts}, max |param card - CPU| "
+            f"= {worst:.3e}")
+        require(loss_err <= 2e-3 and worst <= 2e-3,
+                f"small train T={frames}: card and CPU disagree ({loss_err:.3e}, {worst:.3e})")
+        record[f"T={frames}"] = dict(grad_rel_err=grad_err, loss_err=loss_err, param_err=worst,
+                                     launches=counts)
+    # "dots" keeps the linear outputs; its gradients equal "full"'s
+    grads = {}
+    for remat in ("full", "dots"):
+        loss = flow_matching_loss(card.state.params, cfg, card_batch, t=draws[0][0].to(DEVICE),
+                                  x0=draws[0][1].to(DEVICE), remat=remat)
+        grads[remat] = torch.autograd.grad(loss, card.state.trainable, allow_unused=True)
+    diff = max(float((a - b).abs().max()) for a, b in zip(*grads.values())
+               if a is not None and b is not None)
+    log(f"  remat dots vs full: max |grad difference| = {diff:.3e}")
+    require(diff <= 1e-5, f"small train: remat='dots' and 'full' disagree ({diff:.3e})")
+    record["dots_vs_full_grad_err"] = diff
+    return record
+
+
+TRAIN_DESCRIPTIONS = ("a dog barking", "rain on a roof", "a man speaking", "a violin")
+
+
+def train_examples(n: int, seconds: float, sr: int):
+    """n synthetic examples: target = tones and bursts, residual = noise,
+    mixture = their sum; every other one with two anchors."""
+    import numpy as np
+
+    from sam_audio_tpu_torch.train.data import TrainExample
+
+    rng = np.random.RandomState(17)
+    length = int(seconds * sr)
+    out = []
+    for i in range(n):
+        target = mixture(length, sr, 100 + i)
+        residual = (0.1 * rng.randn(length)).astype(np.float32)
+        anchors = [("+", 0.1 * seconds, 0.4 * seconds), ("-", 0.6 * seconds, 0.7 * seconds)]
+        out.append(TrainExample(mixture=target + residual, target=target, residual=residual,
+                                description=TRAIN_DESCRIPTIONS[i % len(TRAIN_DESCRIPTIONS)],
+                                anchors=anchors if i % 2 == 0 else None))
+    return out
+
+
+def featurize_epoch(ds, pipeline, epoch, batch_size):
+    """The epoch's batches through iter_batches (its prefetch thread) and
+    make_batch, all featurized before training starts (so that a step's time
+    holds no featurization). Returns (batches, ms per batch)."""
+    import torch
+
+    from sam_audio_tpu_torch.train.records import iter_batches
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batches = list(iter_batches(ds.epoch(epoch), pipeline, batch_size,
+                                max_batches=ds.batches_per_epoch(epoch, batch_size)))
+    torch.cuda.synchronize()
+    return batches, (time.perf_counter() - t0) * 1e3 / max(len(batches), 1)
+
+
+def leaf_checksums(tree):
+    """{path: exact checksum} of fp32 leaves (their bits summed as int64)."""
+    import torch
+
+    from sam_audio_tpu_torch.utils import tree_leaves_with_path
+
+    return {p: int(x.detach().view(torch.int32).sum(dtype=torch.int64))
+            for p, x in tree_leaves_with_path(tree)}
+
+
+def train_phase(cfg, tok, proc, n_layers, seconds=MIXTURE_SECONDS, n_examples=8,
+                batch_size=4, expect_launches=True):
+    """Phase 17: training at full width. Records -> FlowMatchingDataPipeline
+    -> Trainer (fp32 master weights from seed 0, bf16 compute, dropout from
+    a seeded generator, remat="full", AdamW with warmup + cosine, EMA 0.999)
+    for 4 steps, a checkpoint at step 2 restored into a fresh Trainer whose
+    steps 3-4 must equal the uninterrupted run's, the EMA exported and
+    separated, LoRA (rank 16, attention) for 2 steps and its merged model
+    separated, the native span predictor for 2 steps, and the command line
+    on the small config."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch.checkpoint import load_sam_audio
+    from sam_audio_tpu_torch.models.init import sam_audio_init
+    from sam_audio_tpu_torch.models.sam_audio import SAMAudio
+    from sam_audio_tpu_torch.models.span_predictor import SpanPredictorConfig
+    from sam_audio_tpu_torch.train.checkpoints import TrainCheckpointManager
+    from sam_audio_tpu_torch.train.data import FlowMatchingDataPipeline
+    from sam_audio_tpu_torch.train.export import export_snapshot
+    from sam_audio_tpu_torch.train.flow_matching import DEFAULT_FROZEN_PREFIXES, Trainer
+    from sam_audio_tpu_torch.train.lora import LoRATrainer
+    from sam_audio_tpu_torch.train.records import ShardedRecordDataset, ShardWriter
+    from sam_audio_tpu_torch.train.span import SpanDataPipeline, SpanTrainer
+    from sam_audio_tpu_torch.utils import tree_leaves_with_path, tree_map
+
+    work = os.path.join(HERE, "build", "train_phase")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    free = shutil.disk_usage(work).free
+    log(f"[train] {n_examples} x {seconds:g} s examples, batch {batch_size}, "
+        f"{free / 2**30:.1f} GiB free on the build disk")
+    sr = cfg.audio_codec.sample_rate
+    with ShardWriter(os.path.join(work, "records"), shard_size=4) as writer:
+        for ex in train_examples(n_examples, seconds, sr):
+            writer.add(ex)
+    ds = ShardedRecordDataset(os.path.join(work, "records"), seed=0)
+    per_batch = len(cfg.audio_codec.encoder_rates) * 3 if expect_launches else 0
+
+    def counted(what, counts, expect):
+        if expect_launches:
+            require(counts == expect, f"{what}: launches {counts}, expected {expect}")
+
+    def params0():
+        return sam_audio_init(cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+
+    kw = dict(device=DEVICE, learning_rate=1e-4, weight_decay=0.01, grad_clip=1.0,
+              lr_schedule="cosine", warmup_steps=1, total_steps=4, ema_decay=0.999,
+              remat="full", seed=0)
+    params = params0()
+    frozen = {p: x.cpu().clone() for p, x in tree_leaves_with_path(params)
+              if p.startswith(DEFAULT_FROZEN_PREFIXES)}
+    start = {p: x.cpu().clone() for p, x in tree_leaves_with_path(params)
+             if not p.startswith(DEFAULT_FROZEN_PREFIXES)}
+    n_trainable = sum(x.numel() for x in start.values())
+    trainer = Trainer(cfg, params, **kw)
+    towers = {k: params[k] for k in DEFAULT_FROZEN_PREFIXES}
+    pipeline = FlowMatchingDataPipeline(cfg, towers, tok, bucket_seconds=2.0)
+    mgr = TrainCheckpointManager(os.path.join(work, "ckpt"), max_to_keep=1,
+                                 save_interval_steps=10**6)
+    log(f"  {n_trainable / 1e9:.3f}B trainable parameters (fp32 master), compute "
+        f"{cfg.compute_dtype}, dropout {cfg.transformer.dropout}, remat full")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    epochs, feat_ms, step_ms, losses = [], [], [], []
+    save_ms = 0.0
+    for epoch in range(2):
+        batches, ms = featurize_epoch(ds, pipeline, epoch, batch_size)
+        epochs.append(batches)
+        feat_ms.append(ms)
+        for batch in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(metrics["loss"]))
+            log(f"  step {trainer.state.step}: loss {losses[-1]:.5f}, grad_norm "
+                f"{float(metrics['grad_norm']):.4f}, {step_ms[-1]:.1f} ms")
+            if trainer.state.step == 2:
+                t0 = time.perf_counter()
+                require(mgr.save(trainer.state, force=True), "train: checkpoint not written")
+                save_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(step_ms)
+    require(steps == 4, f"train: {steps} steps, expected 4")
+    require(all(np.isfinite(losses)), f"train: losses {losses}")
+    counted("train", counts, {"fused_glue_attention": 2 * n_layers * steps,
+                              "fused_residual_unit": per_batch * steps,
+                              "flash_attention": 0, "matmul_int4": 0})
+    live = dict(tree_leaves_with_path(trainer.state.params))
+    for p, x in frozen.items():
+        require(torch.equal(live[p].cpu(), x), f"train: frozen {p} changed")
+    moved = [p for p, x in start.items() if not torch.equal(live[p].detach().cpu(), x)]
+    stuck = [p for p in start if p.startswith("transformer/") and p not in moved]
+    require(not stuck, f"train: trainable leaves that did not change: {stuck[:5]}")
+    log(f"  launches {counts}; featurization {feat_ms} ms a batch; steps {step_ms} ms; peak "
+        f"{peak / 2**30:.2f} GiB; {len(moved)} of {len(start)} trainable leaves changed "
+        f"(the rest get no gradient: no video, zero gates), codec and T5 bit-identical; "
+        f"checkpoint written in {save_ms:.0f} ms")
+    final = {p: x.detach().cpu() for p, x in live.items()}
+    del trainer, live, start
+    torch.cuda.empty_cache()
+
+    # resume: a fresh Trainer restored from step 2 takes steps 3-4 again
+    fresh = Trainer(cfg, params0(), **kw)
+    t0 = time.perf_counter()
+    fresh.state = mgr.restore(fresh.state)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    require(fresh.state.step == 2, f"train: restored step {fresh.state.step}")
+    # step 3, then step 4 under torch.profiler (the train cell's breakdown)
+    from sam_audio_tpu_torch.profile_separate import device_profile
+
+    resumed = [float(fresh.step(epochs[1][0])["loss"])]
+    out = {}
+    _, profile = device_profile(lambda: out.update(fresh.step(epochs[1][1])))
+    resumed.append(float(out["loss"]))
+    log(f"  step 4 profiled: wall {profile['wall_ms']:.1f} ms, device busy "
+        f"{profile['device_busy_ms']:.1f} ms, idle {profile['device_idle_share']:.1%}, "
+        f"{profile['kernel_launches']} launches; by group "
+        + ", ".join(f"{k} {v['ms']:.1f} ms" for k, v in profile["groups"].items()))
+    for row in profile["top"][:8]:
+        log(f"    {row['ms']:8.2f} ms  x{row['launches']:<5d} {row['name']}")
+    loss_diff = max(abs(a - b) for a, b in zip(resumed, losses[2:]))
+    param_diff = max(float((x.detach().cpu() - final[p]).abs().max())
+                     for p, x in tree_leaves_with_path(fresh.state.params))
+    log(f"  resumed from step 2 ({restore_ms:.0f} ms): losses {resumed} vs {losses[2:]}, max "
+        f"|loss diff| {loss_diff:.3e}, max |param diff| {param_diff:.3e}")
+    require(loss_diff <= 1e-6 and param_diff <= 1e-6, "train: the resumed run differs")
+    del final
+    shutil.rmtree(os.path.join(work, "ckpt"))
+
+    # export the EMA, load it onto the card and separate a clip
+    t0 = time.perf_counter()
+    export_snapshot(cfg, fresh.ema_inference_params(), os.path.join(work, "export"))
+    export_ms = (time.perf_counter() - t0) * 1e3
+    del fresh
+    torch.cuda.empty_cache()
+    model = load_sam_audio(os.path.join(work, "export"), device=DEVICE, tokenizer=tok)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    clip = clip_batch(proc, model.sample_rate, seconds)
+    expect_sep = {"fused_glue_attention": n_layers * 32, "fused_residual_unit": 36,
+                  "flash_attention": 0, "matmul_int4": 0} if expect_launches else {}
+    drive("train export", model, clip, seconds, expect_sep, 0, generator=gen)
+    del model
+    shutil.rmtree(os.path.join(work, "export"))
+    torch.cuda.empty_cache()
+    log(f"  exported the EMA in {export_ms:.0f} ms; load_sam_audio + separate(k=1) ok")
+
+    # LoRA: rank 16 over attention, 2 steps; only the adapters move
+    lora = LoRATrainer(cfg, params0(), rank=16, targets="attention", **kw)
+    base = leaf_checksums(lora.base_params)
+    a0 = {k: v["a"].detach().clone() for k, v in lora.adapters.items()}
+    reset_counts()
+    lora_ms = []
+    for batch in epochs[0]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = lora.step(batch)
+        torch.cuda.synchronize()
+        lora_ms.append((time.perf_counter() - t0) * 1e3)
+        require(np.isfinite(float(metrics["loss"])), "lora: loss not finite")
+    lora_counts = read_counts()
+    counted("lora", lora_counts, {"fused_glue_attention": 2 * n_layers * len(lora_ms),
+                                  "fused_residual_unit": 0, "flash_attention": 0,
+                                  "matmul_int4": 0})
+    require(leaf_checksums(lora.base_params) == base, "lora: the base weights changed")
+    require(all(bool(v["b"].abs().max() > 0) and not torch.equal(v["a"], a0[k])
+                for k, v in lora.adapters.items()), "lora: an adapter did not change")
+    n_adapter = sum(x.numel() for v in lora.adapters.values() for x in v.values())
+    merged = SAMAudio(cfg, lora.ema_inference_params(), device=DEVICE, tokenizer=tok)
+    del lora
+    torch.cuda.empty_cache()
+    drive("lora merged", merged, clip, seconds, expect_sep, 0, generator=gen)
+    del merged
+    torch.cuda.empty_cache()
+    log(f"  LoRA: {n_adapter / 1e6:.2f}M adapter parameters, steps {lora_ms} ms, launches "
+        f"{lora_counts}; base bit-identical; merged model separates")
+
+    # span: the native predictor on the same records, 2 steps
+    codec = cfg.audio_codec
+    sp_cfg = SpanPredictorConfig(audio_dim=min(128, codec.codebook_dim),
+                                 text_dim=cfg.text_encoder.dim,
+                                 frame_rate=codec.sample_rate / codec.hop_length)
+    reset_counts()
+    sp_batches, sp_feat_ms = featurize_epoch(
+        ds, SpanDataPipeline(cfg, towers, tok, sp_cfg, bucket_seconds=2.0), 0, batch_size)
+    span_counts = read_counts()
+    counted("span featurization", span_counts,
+            {"fused_residual_unit": per_batch * len(sp_batches), "fused_glue_attention": 0,
+             "flash_attention": 0, "matmul_int4": 0})
+    span = SpanTrainer(sp_cfg, device=DEVICE, seed=0)
+    sp0 = leaf_checksums(span.state.params)
+    span_ms, span_losses = [], []
+    for batch in sp_batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = span.step(batch)
+        torch.cuda.synchronize()
+        span_ms.append((time.perf_counter() - t0) * 1e3)
+        span_losses.append(float(metrics["loss"]))
+    require(all(np.isfinite(span_losses)), f"span: losses {span_losses}")
+    require(leaf_checksums(span.state.params) != sp0, "span: the predictor did not change")
+    log(f"  span: losses {span_losses}, steps {span_ms} ms, featurization {sp_feat_ms:.1f} ms "
+        f"a batch, launches {span_counts}")
+    del span, sp_batches, epochs, towers, pipeline
+    torch.cuda.empty_cache()
+
+    # the command line on the small config
+    small = os.path.join(work, "small.json")
+    with open(small, "w") as f:
+        json.dump(dataclasses.asdict(small_config()), f)
+    cmd = [sys.executable, "-m", "sam_audio_tpu_torch.train", "--synthetic", "4",
+           "--random-init", "--config", small, "--batch-size", "2", "--device", DEVICE,
+           "--ckpt-dir", os.path.join(work, "cli_ckpt"), "--export-dir",
+           os.path.join(work, "cli_export"), "--log-every", "1"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    cli_ms = (time.perf_counter() - t0) * 1e3
+    for line in run.stderr.strip().splitlines()[-3:]:
+        log("  cli: " + line)
+    require(run.returncode == 0, f"train CLI exited {run.returncode}: {run.stderr[-2000:]}")
+    require(os.path.exists(os.path.join(work, "cli_export", "params.npz")),
+            "train CLI wrote no export")
+    shutil.rmtree(work)
+    return {"trainable_params": n_trainable, "step_ms": step_ms, "losses": losses,
+            "featurization_ms_per_batch": feat_ms, "peak_bytes": peak, "launches": counts,
+            "launches_per_step": {k: v / steps for k, v in counts.items()},
+            "checkpoint_save_ms": save_ms, "restore_ms": restore_ms,
+            "resume_loss_diff": loss_diff, "resume_param_diff": param_diff,
+            "step_profile": profile,
+            "export_ms": export_ms, "lora_step_ms": lora_ms, "lora_launches": lora_counts,
+            "lora_adapter_params": n_adapter, "span_step_ms": span_ms,
+            "span_featurization_ms_per_batch": sp_feat_ms, "span_launches": span_counts,
+            "cli_ms": cli_ms}
+
+
 def _wav_bytes(x, sr):
     import io
     import wave
@@ -2135,8 +2709,9 @@ def main() -> int:
     for check in checks.values():
         check()
 
-    # 4. small model: card vs CPU, exact and int4
+    # 4. small model: card vs CPU, exact and int4; two Trainer steps
     small_agreement()
+    small_train = small_training()
 
     # 5. main path, full width
     log("[main] default SAMAudioConfig, random weights (seed 0), bf16")
@@ -2212,6 +2787,11 @@ def main() -> int:
 
     # 16. the eval harness: card vs CPU, run_eval at full width, ImageBind
     evaluation = eval_phase(cfg, tok, proc, n_layers, nfe, visual.pop("imagebind_pair"))
+    torch.cuda.empty_cache()
+
+    # 17. training at full width: records -> Trainer -> checkpoint/resume ->
+    # export -> separate; LoRA; span; the command line
+    train = train_phase(cfg, tok, proc, n_layers)
 
     def entry(res, source, replaces, launches, ms, plain, lib, bms, by, dev, lib_dev):
         # "tpu_source", "max_err" and "kernel_ms" repeat "replaces",
@@ -2219,6 +2799,9 @@ def main() -> int:
         extra = {"per_launch_at": res["extra"]} if "extra" in res else {}
         if "judge_encoder_k8" in res:   # kernel 3's B=8 launches of one judge scoring
             extra["judge_encoder_k8_candidates"] = res["judge_encoder_k8"]
+        if "fwd_bwd" in res:   # forward + backward through the autograd Function
+            extra["forward_backward"] = res["fwd_bwd"]
+        extra["train_launches_per_step"] = train["launches_per_step"][res["name"]]
         return {**extra, "name": res["name"], "route": "cuda", "source": source,
                 "replaces": replaces, "tpu_source": replaces, "launches": launches,
                 "max_abs_err": res["max_abs_err"], "max_err": res["max_abs_err"],
@@ -2254,7 +2837,7 @@ def main() -> int:
                "rerank_k8_10s": rerank, "stream_60s": stream, "judge_k8_10s": judge,
                "int4_10s": int4, "int8_10s": int8, "visual_10s": visual,
                "visual_stream_30s": visual_stream, "spans_10s": spans, "serve": serve,
-               "eval": evaluation, "power": smi}
+               "eval": evaluation, "small_train": small_train, "train": train, "power": smi}
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "summary": summary,

@@ -122,22 +122,21 @@ def cast_matmul_weights(tree, dtype: torch.dtype, keep=(), _name: str = ""):
     return tree
 
 
-def load_sam_audio(path: str, device="cuda", allow_random_towers: bool = False,
-                   tokenizer=None, t5_path: Optional[str] = None, **config_overrides):
-    """Load a local snapshot directory: `config.json` and either `params.npz`
-    (the tree that `SAMAudio.save_pretrained` or the JAX package writes,
+def load_snapshot(path: str, device="cuda", allow_random_towers: bool = False,
+                  t5_path: Optional[str] = None, **config_overrides):
+    """A local snapshot directory -> (SAMAudioConfig, the parameter tree on
+    `device` as stored: fp32 for an exported or converted snapshot).
+    `config.json` and either `params.npz` (the tree that
+    `SAMAudio.save_pretrained`, train/export.py or the JAX package writes,
     quantized trees included) or the reference's `checkpoint.pt`, converted
     here (convert.convert_sam_audio_state_dict, strict). `t5_path` is an HF
     T5 encoder state dict (.pt) for the text tower, which checkpoint.pt does
-    not hold (reference model.py:346-359). Returns a models.sam_audio.SAMAudio
-    on `device`, with the rankers of `cfg.text_ranker` and
-    `cfg.visual_ranker`, and the span predictor of `<path>/span_predictor/`
-    when `cfg.span_predictor` names one (`load_span_predictor`). Without a
-    text tower, a random one is made only when `allow_random_towers=True`
-    (tests), which also lets a weightless ranker take random weights."""
+    not hold (reference model.py:346-359). Without a text tower, a random
+    one is made only when `allow_random_towers=True` (tests). The trainer
+    takes these params as its fp32 master copy; `load_sam_audio` builds a
+    model of them."""
     from sam_audio_tpu_torch.models.init import t5_encoder_init
-    from sam_audio_tpu_torch.models.sam_audio import SAMAudio, resolve_device
-    from sam_audio_tpu_torch.ranking import create_ranker
+    from sam_audio_tpu_torch.models.sam_audio import resolve_device
 
     device = resolve_device(device)
     with open(os.path.join(path, "config.json")) as fin:
@@ -171,6 +170,22 @@ def load_sam_audio(path: str, device="cuda", allow_random_towers: bool = False,
                 "(allow_random_towers=True).")
         gen = torch.Generator(device=device).manual_seed(0)
         params["text_encoder"] = t5_encoder_init(cfg.text_encoder, gen, device)
+    return cfg, params
+
+
+def load_sam_audio(path: str, device="cuda", allow_random_towers: bool = False,
+                   tokenizer=None, t5_path: Optional[str] = None, **config_overrides):
+    """Load a local snapshot directory (`load_snapshot`). Returns a
+    models.sam_audio.SAMAudio on `device`, with the rankers of
+    `cfg.text_ranker` and `cfg.visual_ranker`, and the span predictor of
+    `<path>/span_predictor/` when `cfg.span_predictor` names one
+    (`load_span_predictor`). `allow_random_towers=True` (tests) also lets a
+    missing text tower and a weightless ranker take random weights."""
+    from sam_audio_tpu_torch.models.sam_audio import SAMAudio, resolve_device
+    from sam_audio_tpu_torch.ranking import create_ranker
+
+    device = resolve_device(device)
+    cfg, params = load_snapshot(path, device, allow_random_towers, t5_path, **config_overrides)
     rankers = {name: create_ranker(getattr(cfg, name), allow_random=allow_random_towers,
                                    device=device)
                for name in ("text_ranker", "visual_ranker")}

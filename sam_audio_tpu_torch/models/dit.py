@@ -6,7 +6,8 @@ per-block learned (6, dim) scale-shift tables added to a shared projection of
 the timestep embedding, RoPE self-attention with per-head q/k RMSNorm,
 un-gated cross-attention to the text memory, SwiGLU FFN, Patcher conv stem,
 final adaLN modulation and linear head. Layer parameters are stacked on
-axis 0; the layer loop is a Python loop.
+axis 0; the layer loop is a Python loop over views of them
+(`utils.unstack_layers`, whose backward stacks the layers' gradients once).
 
 Self-attention dispatch (as dit.py:70-110):
   * T <= 512 with qk_norm and head_dim % 128 == 0 -> the fused norm + RoPE +
@@ -14,12 +15,24 @@ Self-attention dispatch (as dit.py:70-110):
   * otherwise norm + RoPE in PyTorch, then ops/attention.attend, which sends
     T >= 1024 to the flash kernel (ops/flash_attention.py) and the rest to
     plain sdpa.
+
+Training (as dit.py:259-376): `dropout_generator` turns on dropout at the
+reference's five sites (post-stem, timestep embedder, context embedder at
+`context_embedder_dropout`, each block's FFN hidden layer, pre-output);
+`remat` recomputes each layer in the backward pass, "full" through
+torch.utils.checkpoint and "dots" keeping the outputs of the unbatched
+matmuls (the projections), as JAX's dots_with_no_batch_dims_saveable.
+Each site draws its mask from a generator seeded from `dropout_generator`
+once a forward, so a recomputed layer draws the same mask.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from sam_audio_tpu_torch.config import TransformerConfig
 from sam_audio_tpu_torch.ops import conv as C
@@ -27,7 +40,7 @@ from sam_audio_tpu_torch.ops import nn as N
 from sam_audio_tpu_torch.ops.attention import attend, sdpa
 from sam_audio_tpu_torch.ops.fused_attention import fused_glue_attention
 from sam_audio_tpu_torch.ops.rope import apply_rope_half, precompute_rope
-from sam_audio_tpu_torch.utils import layer_slice
+from sam_audio_tpu_torch.utils import unstack_layers
 
 FUSED_MAX_SEQLEN = 512
 
@@ -67,8 +80,9 @@ def attention_apply(params, x, *, n_heads, head_dim, cross_x=None,
 
 def dit_block_apply(params, h, *, cfg: TransformerConfig, cross_x, t0,
                     padding_mask, memory_padding_mask, rope_tables,
-                    compute_dtype=None):
-    """h: (B, T, dim); t0: (B, 6*dim) shared timestep projection."""
+                    compute_dtype=None, dropout_generator=None):
+    """h: (B, T, dim); t0: (B, 6*dim) shared timestep projection.
+    `dropout_generator` draws the FFN hidden layer's dropout mask."""
     b = h.shape[0]
     biases = (params["scale_shift_table"][None].float()
               + t0.reshape(b, 6, -1).float()).to(h.dtype)
@@ -95,6 +109,7 @@ def dit_block_apply(params, h, *, cfg: TransformerConfig, cross_x, t0,
         N.modulate(N.rmsnorm(params["ffn_norm"], h, cfg.norm_eps),
                    shift_mlp, scale_mlp),
         cfg.non_linearity, compute_dtype,
+        cfg.dropout if dropout_generator is not None else 0.0, dropout_generator,
     )
     return h + N.gate(h_ff, gate_mlp)
 
@@ -114,18 +129,51 @@ def patcher_apply(params, x, compute_dtype=None):
     return h + x
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """remat="dots": keep the unbatched products (every linear), recompute
+    the rest (norms, attention's batched products, elementwise work)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _site_generator(seed, device):
+    return None if seed is None else torch.Generator(device=device).manual_seed(seed)
+
+
 def dit_apply(params, x, time, *, cfg: TransformerConfig, padding_mask=None,
-              memory=None, memory_padding_mask=None, compute_dtype=None):
+              memory=None, memory_padding_mask=None, compute_dtype=None,
+              remat=None, dropout_generator=None):
     """x: (B, T, in_channels or dim); time: (B,); memory: (B, L, context_dim).
-    Returns (B, T, out_channels). Reference: transformer.py:473-524."""
+    Returns (B, T, out_channels). Reference: transformer.py:473-524.
+
+    `remat`: None, "full" (each layer recomputed in the backward pass:
+    activation memory of about one layer) or "dots" (the layer's linear
+    outputs kept, the rest recomputed). `dropout_generator`: a
+    torch.Generator (the trainer's is on the CPU, so no device sync) that
+    seeds the dropout sites; None is inference."""
+    if remat not in (None, "full", "dots"):
+        raise ValueError(f"unknown remat policy {remat!r}")
+    seeds = [None] * (4 + cfg.n_layers)
+    if dropout_generator is not None:
+        seeds = torch.randint(0, 2**62, (4 + cfg.n_layers,), generator=dropout_generator,
+                              device=dropout_generator.device).tolist()
+    stem_seed, out_seed, t_seed, y_seed, *layer_seeds = seeds
+
     if "data_proj" in params:
         x = N.linear(params["data_proj"], x, compute_dtype)
     h = patcher_apply(params["x_embedder"], x.transpose(1, 2),
                       compute_dtype=compute_dtype).transpose(1, 2)
+    h = N.dropout(h, cfg.dropout, _site_generator(stem_seed, h.device))
 
     t = N.timestep_embedder(params["t_embedder"], time,
                             cfg.frequency_embedding_dim,
-                            cfg.timestep_non_linearity, compute_dtype)
+                            cfg.timestep_non_linearity, compute_dtype,
+                            cfg.dropout, _site_generator(t_seed, h.device))
     t0 = N.get_nonlinearity(cfg.t_block_non_linearity)(t)
     t0 = N.linear(params["t_block"], t0, compute_dtype)  # (B, 6*dim)
 
@@ -137,24 +185,40 @@ def dit_apply(params, x, time, *, cfg: TransformerConfig, padding_mask=None,
         if compute_dtype is not None:
             ym = ym.to(compute_dtype)
         y = N.projection(params["y_embedder"]["projection"], ym,
-                         cfg.context_non_linearity, compute_dtype)
+                         cfg.context_non_linearity, compute_dtype,
+                         cfg.context_embedder_dropout, _site_generator(y_seed, h.device))
 
     rope_tables = None
     if cfg.use_rope:
         rope_tables = precompute_rope(cfg.head_dim, h.shape[1],
                                       max(10000, 2 * cfg.max_positions),
                                       device=h.device)
-    layers = params["layers"]
-    for i in range(cfg.n_layers):
-        h = dit_block_apply(
-            layer_slice(layers, i), h, cfg=cfg, cross_x=y, t0=t0,
+
+    def block(h, layer, seed):
+        return dit_block_apply(
+            layer, h, cfg=cfg, cross_x=y, t0=t0,
             padding_mask=padding_mask, memory_padding_mask=memory_padding_mask,
             rope_tables=rope_tables, compute_dtype=compute_dtype,
+            dropout_generator=_site_generator(seed, h.device),
         )
+
+    remat_kw = {}
+    if remat == "dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        remat_kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                                   _save_matmuls)
+    for layer, seed in zip(unstack_layers(params["layers"]), layer_seeds):
+        if remat is None:
+            h = block(h, layer, seed)
+        else:   # the dropout masks come from seeds, not the global RNG
+            h = checkpoint(block, h, layer, seed, use_reentrant=False,
+                           preserve_rng_state=False, **remat_kw)
 
     shift, scale = (
         params["final_layer_scale_shift_table"][None].float() + t[:, None].float()
     ).to(h.dtype).transpose(0, 1)
     h = N.modulate(N.rmsnorm(params["norm"], h, cfg.norm_eps),
                    shift[:, None, :], scale[:, None, :])
+    h = N.dropout(h, cfg.dropout, _site_generator(out_seed, h.device))
     return N.linear(params["output"], h, compute_dtype)

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from sam_audio_tpu_torch.config import PerceptionEncoderConfig
 from sam_audio_tpu_torch.ops import nn as N
 from sam_audio_tpu_torch.ops.attention import attend
-from sam_audio_tpu_torch.utils import layer_slice
+from sam_audio_tpu_torch.utils import unstack_layers
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
@@ -115,9 +115,7 @@ def encode_images(params, x: torch.Tensor, cfg: PerceptionEncoderConfig,
     score_dtype = (compute_dtype if compute_dtype is not None
                    and torch.finfo(compute_dtype).bits < 32 else None)
 
-    layers = params["layers"]
-    for i in range(next(iter(layers["ln1"].values())).shape[0]):
-        layer = layer_slice(layers, i)
+    for layer in unstack_layers(params["layers"]):
         y = N.layernorm(layer["ln1"], h)
         att = layer["attn"]
         q, k, v = (N.linear(att[nm], y, compute_dtype).reshape(n, -1, heads, hd)

@@ -27,7 +27,7 @@ from sam_audio_tpu_torch.config import PEAVTransformerConfig
 from sam_audio_tpu_torch.ops import nn as N
 from sam_audio_tpu_torch.ops.attention import attend
 from sam_audio_tpu_torch.ops.rope import apply_rope, precompute_rope
-from sam_audio_tpu_torch.utils import layer_slice
+from sam_audio_tpu_torch.utils import unstack_layers
 
 
 @dataclass
@@ -111,10 +111,7 @@ def peav_apply(params, x: torch.Tensor, cfg: PEAVTransformerConfig,
     if compute_dtype is not None:
         x = x.to(compute_dtype)
 
-    layers = params["layers"]
-    n_layers = next(iter(layers["ln1"].values())).shape[0]
-    for i in range(n_layers):
-        layer = layer_slice(layers, i)
+    for layer in unstack_layers(params["layers"]):
         if cfg.prenorm:
             a = _attention(layer["attn"], norm(layer["ln1"], x), b, t, nh, hd, eps, rope,
                            padding_mask, compute_dtype)

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from sam_audio_tpu_torch.ops import nn as N
 from sam_audio_tpu_torch.ops.attention import attend
-from sam_audio_tpu_torch.utils import layer_slice
+from sam_audio_tpu_torch.utils import unstack_layers
 
 
 @dataclass(frozen=True)
@@ -53,8 +53,7 @@ def roberta_encode(params, input_ids, attention_mask, cfg: RobertaConfig,
     x = N.layernorm(params["emb_ln"], x, eps)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    for i in range(cfg.num_layers):
-        layer = layer_slice(params["layers"], i)
+    for layer in unstack_layers(params["layers"]):
         a = layer["attn"]
         q = N.linear(a["wq"], x, compute_dtype).reshape(b, t, nh, -1)
         k = N.linear(a["wk"], x, compute_dtype).reshape(b, t, nh, -1)

@@ -81,10 +81,11 @@ def align_inputs(params, cfg: SAMAudioConfig, noisy_audio, audio_features,
 def forward(params, cfg: SAMAudioConfig, noisy_audio, audio_features,
             text_features, time, masked_video_features=None, text_mask=None,
             anchor_ids=None, anchor_alignment=None, audio_pad_mask=None,
-            compute_dtype=None):
+            compute_dtype=None, remat=None, dropout_generator=None):
     """One ODE function evaluation. noisy_audio/audio_features: (B, T,
     2*latent); text_features: (B, L, text_dim); time: (B,). Returns the
-    velocity (B, T, out_channels)."""
+    velocity (B, T, out_channels). `remat` and `dropout_generator` are for
+    training (models/dit.py dit_apply); inference passes neither."""
     aligned = align_inputs(params, cfg, noisy_audio, audio_features,
                            masked_video_features, anchor_ids, anchor_alignment,
                            compute_dtype)
@@ -99,6 +100,7 @@ def forward(params, cfg: SAMAudioConfig, noisy_audio, audio_features,
         params["transformer"], aligned, time, cfg=cfg.transformer,
         padding_mask=audio_pad_mask, memory=memory,
         memory_padding_mask=text_mask, compute_dtype=compute_dtype,
+        remat=remat, dropout_generator=dropout_generator,
     )
 
 

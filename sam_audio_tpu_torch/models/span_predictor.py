@@ -35,7 +35,7 @@ from sam_audio_tpu_torch.config import PEAVTransformerConfig
 from sam_audio_tpu_torch.ops import nn as N
 from sam_audio_tpu_torch.ops.attention import attend
 from sam_audio_tpu_torch.ops.rope import apply_rope, precompute_rope
-from sam_audio_tpu_torch.utils import layer_slice
+from sam_audio_tpu_torch.utils import unstack_layers
 
 Spans = List[List[Tuple[float, float]]]
 
@@ -68,9 +68,7 @@ def span_predictor_forward(params, cfg: SpanPredictorConfig, audio_features, aud
     def heads(p, x):
         return N.linear(p, x, compute_dtype).reshape(b, x.shape[1], nh, hd)
 
-    layers = params["layers"]
-    for i in range(layers["ln1"]["weight"].shape[0]):
-        layer = layer_slice(layers, i)
+    for layer in unstack_layers(params["layers"]):
         sa, ca = layer["self_attn"], layer["cross_attn"]
         x = N.layernorm(layer["ln1"], h, cfg.norm_eps)
         q = apply_rope(heads(sa["wq"], x), *rope)

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from sam_audio_tpu_torch.config import T5EncoderConfig
 from sam_audio_tpu_torch.ops import nn as N
-from sam_audio_tpu_torch.utils import layer_slice
+from sam_audio_tpu_torch.utils import unstack_layers
 
 
 def relative_position_bucket(relative_position: torch.Tensor, num_buckets=32,
@@ -89,9 +89,7 @@ def t5_encode(params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
     zero = torch.zeros((), device=h.device)
     neg = torch.tensor(torch.finfo(torch.float32).min, device=h.device)
     mask_bias = torch.where(mask, zero, neg)[:, None, None, :]
-    blocks = params["blocks"]
-    for i in range(cfg.num_layers):
-        h = _block_apply(layer_slice(blocks, i), h, position_bias, mask_bias, cfg,
-                         compute_dtype)
+    for block in unstack_layers(params["blocks"]):
+        h = _block_apply(block, h, position_bias, mask_bias, cfg, compute_dtype)
     h = N.rmsnorm(params["final_layer_norm"], h, cfg.layer_norm_eps)
     return h.float()

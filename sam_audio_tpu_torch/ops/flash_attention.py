@@ -27,7 +27,10 @@ read two a lane and shared by ballot.
 
 `flash_attention` takes the plain PyTorch version for CPU tensors and
 launches the kernel for CUDA tensors (raising if it cannot); it counts its
-launches in `flash_attention.launches`.
+launches in `flash_attention.launches`. When autograd records and q, k or v
+requires grad, the launch goes through `FlashAttentionFn`, whose backward is
+the plain version's gradient (ops/grad.py): the JAX package defines no VJP
+for its kernel.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from sam_audio_tpu_torch.ops import _build
+from sam_audio_tpu_torch.ops.grad import needs_grad, plain_vjp
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 BLOCK = 128
@@ -94,12 +98,42 @@ def _load():
     return _lib
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """Kernel 2 forward, the plain version's gradient backward.
+
+    `forward_fn(q, k, v, key_padding_mask, scale)` computes the forward: the
+    kernel's launch on the card (a test passes `flash_attention_plain` to run
+    this backward on the CPU). The backward reruns `flash_attention_plain` on
+    the saved inputs and differentiates it, for q, k and v."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, q, k, v, key_padding_mask, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, key_padding_mask)
+        return forward_fn(q, k, v, key_padding_mask, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, mask = ctx.saved_tensors
+        grads = plain_vjp(lambda *x: flash_attention_plain(*x, mask, ctx.scale),
+                          (q, k, v), ctx.needs_input_grad[1:4], grad_out)
+        return (None, *grads, None, None)
+
+
 def flash_attention(q, k, v, key_padding_mask: Optional[torch.Tensor] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Sk, H, D); key_padding_mask: (B, Sk) bool.
-    Plain version on the CPU, the CUDA kernel on the card (D = 128)."""
+    Plain version on the CPU, the CUDA kernel on the card (D = 128), through
+    `FlashAttentionFn` when a gradient is recorded."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, key_padding_mask, scale)
+    if needs_grad(q, k, v):
+        return FlashAttentionFn.apply(_launch, q, k, v, key_padding_mask, scale)
+    return _launch(q, k, v, key_padding_mask, scale)
+
+
+def _launch(q, k, v, key_padding_mask, scale):
+    """One launch of the kernel on CUDA tensors (counted)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     b, sq, h, d = q.shape

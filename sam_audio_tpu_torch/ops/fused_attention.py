@@ -27,7 +27,10 @@ are.
 
 `fused_glue_attention` takes the plain PyTorch version for CPU tensors and
 launches the kernel for CUDA tensors (raising if it cannot); it counts its
-launches in `fused_glue_attention.launches`.
+launches in `fused_glue_attention.launches`. When autograd records and an
+input requires grad, the launch goes through `FusedGlueAttentionFn`, whose
+backward is the plain version's gradient (ops/grad.py): the JAX package
+defines no VJP for its kernel.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from sam_audio_tpu_torch.ops import _build
+from sam_audio_tpu_torch.ops.grad import needs_grad, plain_vjp
 
 NEG = torch.finfo(torch.float32).min
 _lib = None
@@ -138,14 +142,48 @@ def _load():
     return _lib
 
 
+class FusedGlueAttentionFn(torch.autograd.Function):
+    """Kernel 1 forward, the plain version's gradient backward.
+
+    `forward_fn(q, k, v, q_norm_w, k_norm_w, cos, sin, mask, eps)` computes
+    the forward: the kernel's launch on the card (a test passes
+    `fused_glue_attention_plain` to run this backward on the CPU). The
+    backward reruns `fused_glue_attention_plain` on the saved inputs and
+    differentiates it, for q, k, v and the two norm weights."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, q, k, v, q_norm_w, k_norm_w, cos, sin,
+                key_padding_mask, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(q, k, v, q_norm_w, k_norm_w, cos, sin, key_padding_mask)
+        return forward_fn(q, k, v, q_norm_w, k_norm_w, cos, sin, key_padding_mask, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, qw, kw, cos, sin, mask = ctx.saved_tensors
+        grads = plain_vjp(
+            lambda *x: fused_glue_attention_plain(*x, cos, sin, mask, ctx.eps),
+            (q, k, v, qw, kw), ctx.needs_input_grad[1:6], grad_out)
+        return (None, *grads, None, None, None, None)
+
+
 def fused_glue_attention(q, k, v, q_norm_w, k_norm_w, cos, sin,
                          key_padding_mask: Optional[torch.Tensor] = None,
                          eps: float = 1e-5) -> torch.Tensor:
     """qk-RMSNorm + split-half RoPE + SDPA. Plain version on the CPU, the
-    CUDA kernel on the card (D = 128, T <= 512, float32 or bfloat16)."""
+    CUDA kernel on the card (D = 128, T <= 512, float32 or bfloat16), through
+    `FusedGlueAttentionFn` when a gradient is recorded."""
     if q.device.type == "cpu":
         return fused_glue_attention_plain(q, k, v, q_norm_w, k_norm_w, cos, sin,
                                           key_padding_mask, eps)
+    if needs_grad(q, k, v, q_norm_w, k_norm_w):
+        return FusedGlueAttentionFn.apply(_launch, q, k, v, q_norm_w, k_norm_w, cos, sin,
+                                          key_padding_mask, eps)
+    return _launch(q, k, v, q_norm_w, k_norm_w, cos, sin, key_padding_mask, eps)
+
+
+def _launch(q, k, v, q_norm_w, k_norm_w, cos, sin, key_padding_mask, eps):
+    """One launch of the kernel on CUDA tensors (counted)."""
     if q.device.type != "cuda":
         raise ValueError(f"fused_glue_attention: unsupported device {q.device}")
     b, t, h, d = q.shape

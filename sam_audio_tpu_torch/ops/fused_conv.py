@@ -28,6 +28,9 @@ past T are the conv's own padding).
 `fused_residual_unit` takes the plain PyTorch version for CPU tensors and
 launches the kernel for CUDA tensors (raising if it cannot, e.g. C not a
 multiple of 32); it counts its launches in `fused_residual_unit.launches`.
+The kernel has no gradient (the codec is frozen in training, and the JAX
+package differentiates no codec): on the card the wrapper raises
+RuntimeError when autograd records and an input requires grad.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 
 from sam_audio_tpu_torch.ops import _build
 from sam_audio_tpu_torch.ops.conv import snake_f32
+from sam_audio_tpu_torch.ops.grad import refuse_grad
 
 _lib = None
 
@@ -185,6 +189,8 @@ def fused_residual_unit(params, x: torch.Tensor, dilation: int,
                                          dilation)
     if x.device.type != "cuda":
         raise ValueError(f"fused_residual_unit: unsupported device {x.device}")
+    refuse_grad("fused_residual_unit", x, *(p for unit in params.values()
+                                             for p in unit.values()))
     b, c, t = x.shape
     if params["conv1"]["weight"].shape[-1] != 7:
         raise ValueError("fused_residual_unit kernel takes kernel size 7")

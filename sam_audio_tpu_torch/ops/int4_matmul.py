@@ -39,7 +39,9 @@ carried over: masked copies take any token count.
 `matmul_int4` takes the plain PyTorch version for CPU tensors and launches the
 kernel for CUDA tensors (raising ValueError for a shape it cannot take: the
 group must divide `in` and be a multiple of 16); it counts its launches in
-`matmul_int4.launches`.
+`matmul_int4.launches`. The kernel has no gradient (nothing trains a
+quantized model): on the card the wrapper raises RuntimeError when autograd
+records and x requires grad.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ import functools
 import torch
 
 from sam_audio_tpu_torch.ops import _build
+from sam_audio_tpu_torch.ops.grad import refuse_grad
 
 _lib = None
 
@@ -124,6 +127,7 @@ def matmul_int4(x: torch.Tensor, w4: torch.Tensor, w4_scale: torch.Tensor) -> to
         return matmul_int4_plain(x, w4, w4_scale)
     if x.device.type != "cuda":
         raise ValueError(f"matmul_int4: unsupported device {x.device}")
+    refuse_grad("matmul_int4", x, w4_scale)
     if x.ndim != 2 or w4.ndim != 2 or w4_scale.ndim != 2:
         raise ValueError("matmul_int4 kernel takes a 2-D x, w4 and w4_scale")
     m, k = x.shape

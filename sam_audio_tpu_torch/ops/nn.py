@@ -68,6 +68,17 @@ def gate(x, g):
     return x * g
 
 
+def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
+    """Inverted dropout; the identity when rate is 0 or there is no generator
+    (inference). The keep mask is drawn from `generator` (on x's device), so
+    it cannot reproduce jax.random's bits: only the distribution is JAX's."""
+    if rate <= 0.0 or generator is None:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                          device=x.device)).to(x.dtype)
+
+
 def get_nonlinearity(kind: str):
     """reference: sam_audio/model/transformer.py:25-33 ('swiglu' handled by
     callers). "gelu" is the tanh approximation, as jax.nn.gelu's default."""
@@ -82,14 +93,17 @@ def get_nonlinearity(kind: str):
     }[kind]
 
 
-def projection(params, x, non_linearity: str, compute_dtype=None):
-    """w2(silu(w1(x)) * w3(x)) for swiglu, else w2(act(w1(x)))
-    (reference: sam_audio/model/transformer.py:50-80)."""
+def projection(params, x, non_linearity: str, compute_dtype=None,
+               dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None):
+    """w2(dropout(silu(w1(x)) * w3(x))) for swiglu, else w2(dropout(act(w1(x))))
+    (reference: sam_audio/model/transformer.py:50-80; dropout in training
+    only, transformer.py:79)."""
     h1 = linear(params["w1"], x, compute_dtype)
     if non_linearity == "swiglu":
         h = F.silu(h1) * linear(params["w3"], x, compute_dtype)
     else:
         h = get_nonlinearity(non_linearity)(h1)
+    h = dropout(h, dropout_rate, generator)
     return linear(params["w2"], h, compute_dtype)
 
 
@@ -120,11 +134,13 @@ def glide_timestep_embedding(t: torch.Tensor, dim: int, max_period: float = 1000
 
 
 def timestep_embedder(params, t, frequency_embedding_dim, non_linearity="swiglu",
-                      compute_dtype=None):
+                      compute_dtype=None, dropout_rate: float = 0.0,
+                      generator: Optional[torch.Generator] = None):
     x = glide_timestep_embedding(t, frequency_embedding_dim)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
-    return projection(params["projection"], x, non_linearity, compute_dtype)
+    return projection(params["projection"], x, non_linearity, compute_dtype,
+                      dropout_rate, generator)
 
 
 def embed_anchors(params, x, anchor_ids=None, anchor_alignment=None,

@@ -10,10 +10,12 @@ the arrays to its device. `SAMAudioJudgeProcessor` prepares the judge's
 `pad_to_samples` right-pads a batch to a given length: the serving batcher
 pads each group to its length bucket, so that its groups have the JAX
 package's shapes (and a parity test can inject the same noise into both).
-Not ported, on purpose: the JAX processor's `bucket_seconds` and
-`pad_anchors_to` (sam_audio_tpu/processor.py:253-316) exist so that XLA
-reuses one compiled program; eager PyTorch compiles no program per shape,
-and anchor slots past the last anchor are never referenced.
+`bucket_seconds` (rounding the padded length up to a bucket) and
+`pad_anchors_to` (a minimum anchor-slot width) are JAX's
+(sam_audio_tpu/processor.py:253-316). They exist there so that XLA reuses
+one compiled program; the port's training pipeline keeps them because they
+fix a batch's shapes, and so the noise and the loss's mean. Inference leaves
+them off.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ class Batch:
         anchors: Optional[List[List[Anchor]]] = None,
         audio_pad_mask: Optional[np.ndarray] = None,
         masked_video: Optional[list] = None,
+        anchor_pad_to: Optional[int] = None,
     ):
         self.audios = audios
         self.sizes = sizes
@@ -87,6 +90,7 @@ class Batch:
         self.masked_video = masked_video
         self.hop_length = hop_length
         self.audio_sampling_rate = audio_sampling_rate
+        self.anchor_pad_to = anchor_pad_to   # minimum anchor-slot width
         self.process_anchors(anchors)
         assert self.audios.shape[0] == len(self.descriptions)
 
@@ -100,8 +104,12 @@ class Batch:
         t_feat = self.audio_pad_mask.shape[-1]
         anchor_alignment = np.zeros((batch_size, t_feat), np.int32)
         anchor_alignment[~self.audio_pad_mask] = 1  # pad frames -> <pad> slot
+        pad_to = self.anchor_pad_to
         if anchors is None:
-            anchor_ids = np.full((batch_size, 2), ANCHOR_VOCAB["<pad>"],
+            width = max(2, pad_to or 0)
+            if pad_to:   # the anchors branch's rounding: one width either way
+                width = 4 * ((width + 3) // 4)
+            anchor_ids = np.full((batch_size, width), ANCHOR_VOCAB["<pad>"],
                                  np.int32)
             anchor_ids[:, 0] = ANCHOR_VOCAB["<null>"]
         else:
@@ -120,7 +128,7 @@ class Batch:
                 ids.append(current)
             # slots rounded up to a multiple of 4, as the JAX package does;
             # unused slots are <pad> (never referenced by the alignment)
-            longest = 4 * ((max(len(c) for c in ids) + 3) // 4)
+            longest = 4 * ((max([len(c) for c in ids] + [pad_to or 0]) + 3) // 4)
             anchor_ids = np.full((batch_size, longest), ANCHOR_VOCAB["<pad>"],
                                  np.int32)
             for i, c in enumerate(ids):
@@ -154,9 +162,11 @@ def load_video(sizes: np.ndarray, videos: Sequence[Union[str, np.ndarray]],
 
 
 class SAMAudioProcessor:
-    def __init__(self, audio_hop_length: int, audio_sampling_rate: int):
+    def __init__(self, audio_hop_length: int, audio_sampling_rate: int,
+                 bucket_seconds: float = 0.0):
         self.audio_hop_length = audio_hop_length
         self.audio_sampling_rate = audio_sampling_rate
+        self.bucket_seconds = bucket_seconds
 
     @classmethod
     def from_pretrained(cls, path: str) -> "SAMAudioProcessor":
@@ -197,11 +207,14 @@ class SAMAudioProcessor:
         anchors: Optional[List[List[Anchor]]] = None,
         masked_videos=None,
         pad_to_samples: Optional[int] = None,
+        pad_anchors_to: Optional[int] = None,
     ) -> Batch:
         """reference: sam_audio/processor.py:211-260. `masked_videos`: per
         item the masked frames (N, C, H, W) (see `mask_videos`) or a video
         file, mapped to one frame per latent frame. `pad_to_samples` (at
-        least the longest item) is the padded waveform length."""
+        least the longest item) is the padded waveform length; without it,
+        a processor with `bucket_seconds` rounds the length up to a bucket.
+        `pad_anchors_to` is the minimum anchor-slot width."""
         assert len(descriptions) == len(audios)
         assert anchors is None or len(descriptions) == len(anchors)
         assert masked_videos is None or len(descriptions) == len(masked_videos)
@@ -213,6 +226,13 @@ class SAMAudioProcessor:
                 raise ValueError(f"pad_to_samples={pad_to_samples} is shorter than the "
                                  f"longest item ({tmax} samples)")
             audio_arr = np.pad(audio_arr, [(0, 0), (0, 0), (0, pad_to_samples - tmax)])
+        elif self.bucket_seconds > 0:
+            # a bucket is a whole number of hops
+            bucket = int(self.bucket_seconds * self.audio_sampling_rate)
+            bucket = max(self.audio_hop_length,
+                         bucket // self.audio_hop_length * self.audio_hop_length)
+            tmax = audio_arr.shape[-1]
+            audio_arr = np.pad(audio_arr, [(0, 0), (0, 0), (0, -(-tmax // bucket) * bucket - tmax)])
 
         sizes = self.wav_to_feature_idx(wav_sizes)
         t_feat = self.wav_to_feature_idx(int(audio_arr.shape[-1]))
@@ -231,6 +251,7 @@ class SAMAudioProcessor:
             hop_length=self.audio_hop_length,
             audio_sampling_rate=self.audio_sampling_rate,
             wav_sizes=wav_sizes,
+            anchor_pad_to=pad_anchors_to,
         )
 
 

@@ -56,16 +56,19 @@ def _group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def _profile(fn):
+def device_profile(fn):
     """fn() once under torch.profiler: wall ms, device busy ms, idle share,
     launches, device ms by group and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = _ms(fn)
+    # user annotations (e.g. "Optimizer.step#AdamW.step") span kernels that
+    # are counted on their own
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_type", None) is not None
                and str(e.device_type).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)
                and getattr(e, "self_device_time_total", 0) > 0]
     busy_us = sum(e.self_device_time_total for e in kernels)
     groups = {}
@@ -174,12 +177,13 @@ def main() -> int:
     stages["sum_ms"] = sum(stages.values())
     print(json.dumps({"stages": stages}), flush=True)
 
-    prof, rec = _profile(lambda: model.separate(batch, generator=gen, reranking_candidates=k))
+    prof, rec = device_profile(
+        lambda: model.separate(batch, generator=gen, reranking_candidates=k))
     print(json.dumps({"profile": {"bits": args.bits, "candidates": k, "video": args.video,
                                   **rec}}), flush=True)
     if args.video:
         with torch.inference_mode():
-            _, pe = _profile(lambda: model._encode_videos(batch.masked_video, t))
+            _, pe = device_profile(lambda: model._encode_videos(batch.masked_video, t))
         print(json.dumps({"pe_profile": pe}), flush=True)
     if args.trace:
         prof.export_chrome_trace(args.trace)

@@ -19,9 +19,34 @@ def tree_map(fn: Callable, tree):
     return fn(tree)
 
 
-def layer_slice(stacked, i: int):
-    """Layer i of parameters stacked on a leading layer axis (views)."""
-    return tree_map(lambda x: x[i], stacked)
+def tree_leaves_with_path(tree, prefix: str = ""):
+    """[(path, leaf)] with `a/b/0/c` paths, in jax.tree_util's order (dict
+    keys sorted, list items in order)."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in tree_leaves_with_path(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, v in enumerate(tree) for kv in tree_leaves_with_path(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def tree_map_with_path(fn: Callable, tree, prefix: str = ""):
+    """tree_map whose `fn(path, leaf)` also gets the leaf's `a/b/0/c` path."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map_with_path(fn, v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+    return fn(prefix[:-1], tree)
+
+
+def unstack_layers(stacked):
+    """Every layer of parameters stacked on a leading layer axis, as a list
+    of trees of views. Each leaf is unbound once: its backward stacks the
+    layers' gradients in one pass, where indexing each layer would build a
+    full-size zero gradient per layer and sum them."""
+    leaves = tree_leaves_with_path(stacked)
+    unbound = {path: x.unbind(0) for path, x in leaves}
+    return [tree_map_with_path(lambda path, _: unbound[path][i], stacked)
+            for i in range(leaves[0][1].shape[0])]
 
 
 class StageTimer:

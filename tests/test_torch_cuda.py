@@ -556,6 +556,137 @@ def test_cuda_eval_run_like_the_cpu(cuda, monkeypatch, tmp_path):
             assert abs(card[k] - v) <= 2e-3 + 2e-3 * abs(v), (k, card[k], v)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_cuda_fused_attention_gradient_equals_plain(cuda, dtype, tol):
+    """Kernel 1 under autograd: one launch through FusedGlueAttentionFn, and
+    the gradients of q, k, v and both norm weights are the plain version's
+    (its VJP reruns the plain version on the saved inputs)."""
+    q, k, v, qw, kw, cos, sin, mask = _glue_inputs(cuda, 3, 250, dtype)
+    inputs = [x.requires_grad_(True) for x in (q, k, v, qw, kw)]
+    w = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(1),
+                    device=cuda)
+    n = fused_glue_attention.launches
+    out = fused_glue_attention(*inputs, cos, sin, mask)
+    assert fused_glue_attention.launches == n + 1 and out.grad_fn is not None
+    got = torch.autograd.grad((out.float() * w).sum(), inputs)
+    ref = torch.autograd.grad(
+        (fused_glue_attention_plain(*inputs, cos, sin, mask).float() * w).sum(), inputs)
+    for a, b in zip(got, ref):
+        assert a.abs().max() > 0
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)])
+def test_cuda_flash_attention_gradient_equals_plain(cuda, dtype, tol):
+    q, k, v, mask = _qkv(cuda, 1100, dtype, 6)
+    inputs = [x.requires_grad_(True) for x in (q, k, v)]
+    w = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(2),
+                    device=cuda)
+    n = flash_attention.launches
+    out = flash_attention(*inputs, mask)
+    assert flash_attention.launches == n + 1 and out.grad_fn is not None
+    got = torch.autograd.grad((out.float() * w).sum(), inputs)
+    ref = torch.autograd.grad((flash_attention_plain(*inputs, mask).float() * w).sum(), inputs)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.float(), b.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_3_and_4_refuse_a_gradient(cuda):
+    """Kernels without a gradient raise rather than cut the graph; under
+    no_grad they launch as before."""
+    p = _unit(cuda, 64, 3)
+    x = torch.randn(1, 64, 400, device=cuda, requires_grad=True)
+    n = fused_residual_unit.launches
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fused_residual_unit(p, x, 3, torch.float32)
+    p["conv1"]["weight"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fused_residual_unit(p, x.detach(), 3, torch.float32)
+    with torch.no_grad():
+        fused_residual_unit(p, x, 3, torch.float32)
+    assert fused_residual_unit.launches == n + 1
+    q = quantize_linear_int4({"weight": torch.randn(256, 256, device=cuda)})
+    xi = torch.randn(4, 256, device=cuda, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        matmul_int4(xi, q["w4"], q["w4_scale"])
+    with torch.no_grad():
+        matmul_int4(xi, q["w4"], q["w4_scale"])
+
+
+@pytest.mark.cuda
+def test_cuda_small_trainer_like_the_cpu(cuda):
+    """Two Trainer steps of a small fp32 model (head_dim 128: kernel 1, and
+    its gradient through FusedGlueAttentionFn) on the card and on the CPU
+    with the same t and x0: every trainable leaf's gradient within 1e-4 of
+    its largest CPU value, loss and updated parameters within 2e-3 (no
+    warmup, so both steps move them), and every layer's wq gets a gradient
+    on the card."""
+    import numpy as np
+
+    from sam_audio_tpu_torch.config import tiny_test_config
+    from sam_audio_tpu_torch.models.init import sam_audio_init
+    from sam_audio_tpu_torch.train.flow_matching import Trainer, flow_matching_loss, synthetic_batch
+    from sam_audio_tpu_torch.utils import tree_leaves_with_path, tree_map
+
+    base = tiny_test_config()
+    cfg = tiny_test_config(transformer=type(base.transformer)(
+        dim=256, n_heads=2, n_layers=2, dropout=0.0, context_dim=256, max_positions=512,
+        frequency_embedding_dim=8, out_channels=8))
+    params = sam_audio_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = synthetic_batch(cfg, torch.Generator().manual_seed(1), t_frames=200)
+    rng = np.random.RandomState(2)
+    draws = [(torch.from_numpy(rng.rand(2).astype(np.float32)),
+              torch.from_numpy(rng.randn(2, 200, 8).astype(np.float32))) for _ in range(2)]
+    kw = dict(learning_rate=1e-3, lr_schedule="cosine", warmup_steps=0, total_steps=3,
+              ema_decay=0.9)
+    card = Trainer(cfg, tree_map(lambda x: x.to(cuda), params), device=cuda, **kw)
+    host = Trainer(cfg, tree_map(lambda x: x.clone(), params), device="cpu", **kw)
+    names = [p for p, x in tree_leaves_with_path(card.state.params) if x.requires_grad]
+    grads = []
+    for trainer, dev in ((card, cuda), (host, "cpu")):
+        loss = flow_matching_loss(trainer.state.params, cfg, tree_map(lambda x: x.to(dev), batch),
+                                  t=draws[0][0].to(dev), x0=draws[0][1].to(dev))
+        grads.append(dict(zip(names, torch.autograd.grad(loss, trainer.state.trainable,
+                                                         allow_unused=True))))
+    for name in names:
+        gc, gh = grads[0][name], grads[1][name]
+        assert (gc is None) == (gh is None), name
+        if gh is not None:
+            assert float((gc.cpu() - gh).abs().max()) <= 1e-4 * float(gh.abs().max()), name
+    g = grads[0]["transformer/layers/attention/wq/weight"]
+    assert all(g[i].abs().max() > 0 for i in range(cfg.transformer.n_layers))
+    n = fused_glue_attention.launches
+    for t, x0 in draws:
+        a = card.step(tree_map(lambda x: x.to(cuda), batch), t=t.to(cuda), x0=x0.to(cuda))
+        b = host.step(batch, t=t, x0=x0)
+        assert abs(float(a["loss"]) - float(b["loss"])) <= 2e-3
+    assert fused_glue_attention.launches == n + 2 * 2 * 2   # 2 layers, recomputed, 2 steps
+    ref = dict(tree_leaves_with_path(host.state.params))
+    for path, x in tree_leaves_with_path(card.state.params):
+        torch.testing.assert_close(x.detach().cpu(), ref[path].detach(), rtol=2e-3, atol=2e-3,
+                                   msg=path)
+
+
+def test_cuda_trainer_is_refused_without_a_gpu(monkeypatch):
+    """With no GPU, a trainer asked for the card raises (no silent CPU
+    path). Runs anywhere: the missing GPU is simulated."""
+    from sam_audio_tpu_torch.config import tiny_test_config
+    from sam_audio_tpu_torch.models.init import sam_audio_init
+    from sam_audio_tpu_torch.train.flow_matching import Trainer
+    from sam_audio_tpu_torch.train.span import SpanTrainer
+    from sam_audio_tpu_torch.models.span_predictor import SpanPredictorConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = tiny_test_config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, sam_audio_init(cfg, torch.Generator().manual_seed(0), "cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpanTrainer(SpanPredictorConfig(audio_dim=4, text_dim=16, hidden=32, n_layers=1))
+
+
 def test_cuda_is_refused_without_a_gpu(monkeypatch):
     """With no GPU, asking for the card raises for the PE tower and the
     ImageBind ranker alike (no silent CPU path). Runs anywhere: the missing
