@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels 1,3    (phases 1-3 for the listed kernels, then stop)
+    python3 chip_smoke.py --phase parallel (phases 1-2 and 18, then stop)
 
 Phases (any failure exits non-zero):
   1. device  — require CUDA; print the card's name and power limit; TF32 off.
@@ -135,6 +136,35 @@ Phases (any failure exits non-zero):
                `python -m sam_audio_tpu_torch.train --synthetic 4
                --random-init --config <small> --batch-size 2 --device cuda
                --ckpt-dir ... --export-dir ...` must exit 0.
+ 18. parallel — torch.distributed: first the unsharded references in this
+               process (main's model: 10 s at k=1, the same with its noise
+               scaled by 1 + 2^-8 (the correlations' floor), k=8 with phase
+               7's CLAP ranker, 48 s = 1,200 frames through kernel 2, and
+               10 s after quantize(4)), then 4 ranks: NCCL one rank a card with
+               four or more cards, else gloo with the 4 ranks on one card
+               (parallel/mesh.init_distributed's rule; under gloo the
+               collectives that parallel/comm.py passes CUDA tensors to are
+               held against gloo on host copies). Each rank: (a)
+               phase 4's small fp32 model at dp2 x tp2 (k=1, k=4), int8
+               under tp2 and sp4 (the ring), each within 2e-3 of the
+               unsharded separate on the same card; two dp2 x tp2 Trainer
+               steps against one rank's, the step-2 checkpoint restored at
+               dp4 x tp1 and a third step (2e-3); (b) main's model at
+               dp2 x tp2 on the 10 s clip at k=1 and k=8 (the winner the
+               unsharded one where the score margin exceeds the bf16
+               spread), int4 under tp2, and sp4 on the 48 s clip (300 frames
+               a rank): finite, of the clip's length, correlation >= 0.99
+               with the unsharded target (k=1 also against an unsharded run
+               in the rank); (c) two dp2 x tp2 Trainer steps at
+               full width (TRAIN_LAYERS layers). Every rank's launches (kernel
+               1 on H/tp heads and kernel 3 at k=1: 512 / 36, kernel 4 under
+               int4), peak memory and wall ms are logged. With fewer than
+               four cards, a one-rank NCCL world runs (a) once more and the
+               NCCL collectives; last, `python -m torch.distributed.run
+               --standalone --nproc-per-node 4 -m sam_audio_tpu_torch.train
+               --synthetic 4 --random-init --config <small> --batch-size 4
+               --dp 2 --tp 2 --device cuda --ckpt-dir ... --export-dir ...`
+               must exit 0. Ranks that share a card measure no scaling.
 Phase 4 also takes two Trainer steps of the small fp32 model (dropout 0, no
 warmup) on the card and on the CPU with the same t and x0, at 200 frames
 (kernel 1) and 1100 (kernel 2): every trainable leaf's gradient card vs CPU
@@ -2642,6 +2672,538 @@ def train_phase(cfg, tok, proc, n_layers, seconds=MIXTURE_SECONDS, n_examples=8,
             "cli_ms": cli_ms}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+PARALLEL_WORLD = 4
+SP_SECONDS = 48.0       # 1,200 latent frames: 300 a rank over sp4, kernel 2 unsharded
+SMALL_TOL = 2e-3        # phase 4's card-vs-CPU bound
+CORR_BOUND = 0.99       # full width, bf16: sharded vs unsharded target correlation
+TRAIN_LAYERS = 16       # the default depth; see parallel_train
+
+
+def parallel_dir():
+    d = os.path.join(HERE, "build", "parallel")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def corr(a, b) -> float:
+    import numpy as np
+
+    return float(np.corrcoef(np.asarray(a, np.float64), np.asarray(b, np.float64))[0, 1])
+
+
+def spy_scores(ranker, seen):
+    """Record the (B, k) scores of every on-device scoring of `ranker`."""
+    on_device = ranker.score_on_device
+
+    def spy(*args, **kw):
+        scores = on_device(*args, **kw)
+        seen.append(scores.float().cpu().numpy())
+        return scores
+
+    ranker.score_on_device = spy
+
+
+def parallel_references(cfg, tok, proc, n_layers, nfe):
+    """The unsharded runs that the world is held against, in this process on
+    the card: main's model (seed 0, bf16) on the 10 s clip at k=1 and at k=8
+    with phase 7's CLAP ranker, the 48 s clip (kernel 2), and after
+    quantize(4) the 10 s clip at k=1. Saved with their noise to
+    build/parallel/refs.pt."""
+    import torch
+
+    from sam_audio_tpu_torch import SAMAudio
+    from sam_audio_tpu_torch.config import ClapRankerConfig
+    from sam_audio_tpu_torch.ranking.clap import ClapRanker
+
+    sr = cfg.audio_codec.sample_rate
+    c2 = 2 * cfg.audio_codec.codebook_dim
+    batch10 = clip_batch(proc, sr, MIXTURE_SECONDS)
+    batch48 = clip_batch(proc, sr, SP_SECONDS)
+    gen = torch.Generator().manual_seed(11)
+    t10, t48 = batch10.anchor_alignment.shape[-1], batch48.anchor_alignment.shape[-1]
+    noise = {"k1": torch.randn((1, t10, c2), generator=gen),
+             "k8": torch.randn((8, t10, c2), generator=gen),
+             "sp": torch.randn((1, t48, c2), generator=gen)}
+    model = SAMAudio.init_random(cfg, seed=0, device=DEVICE, tokenizer=tok)
+    refs, launches = {"noise": noise}, {}
+
+    def run(name, batch, expect, **kw):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = model.separate(batch, noise=noise[name.split("_")[0]].to(DEVICE), **kw)
+        torch.cuda.synchronize()
+        launches[name] = read_counts()
+        for kernel, n in expect.items():
+            require(launches[name][kernel] == n, f"parallel reference {name}: "
+                    f"{launches[name][kernel]} {kernel} launches, expected {n}")
+        log(f"  unsharded {name}: {(time.perf_counter() - t0) * 1e3:.1f} ms, "
+            f"launches {launches[name]}")
+        return res.target[0]
+
+    refs["k1"] = run("k1", batch10, {"fused_glue_attention": n_layers * nfe,
+                                     "fused_residual_unit": 36})
+    # the floor of the correlations below: the same model with its noise
+    # changed by 2^-8 of itself (about one bf16 rounding)
+    noise["k1p"] = noise["k1"] * (1 + 2.0 ** -8)
+    refs["k1_perturbed_corr"] = corr(run("k1p", batch10, {}), refs["k1"])
+    log(f"  unsharded, noise x (1 + 2^-8): correlation {refs['k1_perturbed_corr']:.5f} with k1")
+    model.text_ranker = ClapRanker(ClapRankerConfig(), allow_random=True, device=DEVICE)
+    seen = []
+    spy_scores(model.text_ranker, seen)
+    refs["k8"] = run("k8", batch10, {"fused_glue_attention": n_layers * nfe},
+                     reranking_candidates=8)
+    require(bool(seen), "parallel reference k8: the on-device scoring path was not taken")
+    refs["k8_scores"] = seen[-1][0]
+    model.text_ranker = None
+    refs["sp"] = run("sp", batch48, {"flash_attention": n_layers * nfe,
+                                     "fused_residual_unit": 36})
+    model.quantize(4)
+    refs["k1_int4"] = run("k1_int4", batch10, {"matmul_int4": sum(
+        int4_launches_k1(cfg).values())})
+    refs["launches"] = launches
+    del model
+    torch.cuda.empty_cache()
+    torch.save(refs, os.path.join(parallel_dir(), "refs.pt"))
+    return refs
+
+
+def parallel_small(rank, device, meshes):
+    """(a) the small fp32 model of phase 4, each sharded path against the
+    unsharded one on the same card (SMALL_TOL)."""
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch import SAMAudio, SAMAudioProcessor
+    from sam_audio_tpu_torch.models.init import sam_audio_init
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+    from sam_audio_tpu_torch.train.checkpoints import TrainCheckpointManager
+    from sam_audio_tpu_torch.train.flow_matching import Trainer, synthetic_batch
+    from sam_audio_tpu_torch.utils import tree_leaves_with_path, tree_map
+
+    cfg = small_config()
+    tok = ByteFallbackTokenizer(cfg.text_encoder.vocab_size)
+    proc = SAMAudioProcessor(cfg.audio_codec.hop_length, cfg.audio_codec.sample_rate)
+    # 200 and 160 frames: the batch pads to 200, 50 a rank over sp4
+    batch = proc(descriptions=["a dog barking", "rain"],
+                 audios=[mixture(1600, 8000, 1), mixture(1280, 8000, 2)])
+    noise = torch.randn((2, batch.anchor_alignment.shape[-1], 2 * cfg.audio_codec.codebook_dim),
+                        generator=torch.Generator().manual_seed(3))
+    out = {}
+
+    def model(mesh=None, bits=None, sp=None):
+        m = SAMAudio.init_random(cfg, seed=0, device=device, tokenizer=tok)
+        if bits:
+            m.quantize(bits)
+        if mesh is not None:
+            m.shard(mesh)
+        m.sp_mesh = sp
+        return m
+
+    def check(name, mesh=None, bits=None, sp=None, k=1):
+        ref = model(bits=bits).separate(batch, noise=noise, reranking_candidates=k)
+        reset_counts()
+        got = model(mesh, bits, sp).separate(batch, noise=noise, reranking_candidates=k)
+        counts = read_counts()
+        err = max(float(np.abs(a - b).max()) for a, b in zip(got.target + got.residual,
+                                                              ref.target + ref.residual))
+        require(err <= SMALL_TOL, f"parallel small {name} on rank {rank}: max |sharded - "
+                f"unsharded| {err:.3e} > {SMALL_TOL}")
+        out[name] = {"max_abs_err": err, "launches": counts}
+
+    check("dp2tp2_k1", meshes["dp2tp2"])
+    check("dp2tp2_k4", meshes["dp2tp2"], k=4)
+    check("int8_tp2", meshes["dp2tp2"], bits=8)
+    check("sp4", sp=meshes["sp"])
+
+    # two Trainer steps at dp2 x tp2 against one rank's; the step-2
+    # checkpoint restored at tp1 (dp4 x tp1), then a third step on both
+    params = sam_audio_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    kw = dict(device=device, learning_rate=1e-3, lr_schedule="cosine", warmup_steps=0,
+              total_steps=3, ema_decay=0.9)
+    def fresh():   # each trainer owns its tensors (on the CPU .to() would share them)
+        return tree_map(lambda x: x.clone(), params)
+
+    one = Trainer(cfg, fresh(), **kw)
+    mesh_run = Trainer(cfg, fresh(), mesh=meshes["dp2tp2"], **kw)
+    gen = torch.Generator(device=device).manual_seed(5)
+    batches = [synthetic_batch(cfg, gen, batch_size=4, t_frames=200) for _ in range(3)]
+    losses = []
+    for b in batches[:2]:
+        losses.append((float(one.step(b)["loss"]), float(mesh_run.step(b)["loss"])))
+    ckpt = os.path.join(parallel_dir(), "ckpt_small")
+    if rank == 0:
+        import shutil
+
+        shutil.rmtree(ckpt, ignore_errors=True)
+    torch.distributed.barrier()
+    TrainCheckpointManager(ckpt).save(mesh_run.state)
+    restored = Trainer(cfg, fresh(), mesh=meshes["dp4"], **kw)
+    restored.state = TrainCheckpointManager(ckpt).restore(restored.state)
+    for run in (one, mesh_run, restored):
+        losses.append(float(run.step(batches[2])["loss"]))
+    ref = dict(tree_leaves_with_path(one.state.params))
+    errs = {}
+    for name, run in (("dp2tp2", mesh_run), ("restored_dp4", restored)):
+        errs[name] = max(float((x - ref[p].detach()).abs().max())
+                         for p, x in tree_leaves_with_path(run.full_params()))
+    loss_err = max([abs(a - b) for a, b in losses[:2]] + [abs(losses[2] - x)
+                                                         for x in losses[3:]])
+    require(loss_err <= SMALL_TOL and max(errs.values()) <= SMALL_TOL,
+            f"parallel small train on rank {rank}: loss {loss_err:.3e}, params {errs}")
+    out["train"] = {"loss_err": loss_err, "param_err": errs}
+    return out
+
+
+def parallel_full(rank, device, meshes, refs):
+    """(b) main's model at full width (default config, bf16, seed 0) against
+    the unsharded references of this process's parent."""
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch import SAMAudio, SAMAudioConfig, SAMAudioProcessor
+    from sam_audio_tpu_torch.config import ClapRankerConfig
+    from sam_audio_tpu_torch.ranking.clap import ClapRanker
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+
+    cfg = SAMAudioConfig()
+    tok = ByteFallbackTokenizer(cfg.text_encoder.vocab_size)
+    proc = SAMAudioProcessor(cfg.audio_codec.hop_length, cfg.audio_codec.sample_rate)
+    sr = cfg.audio_codec.sample_rate
+    batch10, batch48 = clip_batch(proc, sr, MIXTURE_SECONDS), clip_batch(proc, sr, SP_SECONDS)
+    out = {}
+
+    def run(name, model, batch, seconds, ref, **kw):
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = model.separate(batch, noise=refs["noise"][name.split("_")[0]].to(device), **kw)
+        torch.cuda.synchronize(device)
+        ms = (time.perf_counter() - t0) * 1e3
+        tgt = res.target[0]
+        require(tgt.shape == (int(seconds * sr),) and bool(np.isfinite(tgt).all()),
+                f"parallel {name} on rank {rank}: target {tgt.shape}, finite "
+                f"{bool(np.isfinite(tgt).all())}")
+        c = corr(tgt, ref)
+        out[name] = {"ms": ms, "launches": read_counts(), "corr": c, "corr_bound": CORR_BOUND,
+                     "peak_bytes": torch.cuda.max_memory_allocated(device)}
+        require(c >= CORR_BOUND, f"parallel {name} on rank {rank}: correlation {c:.5f} "
+                f"with the unsharded target < {CORR_BOUND}")
+        return res
+
+    # the same unsharded separate in this rank: how far a rank's process is
+    # from the script's own, sharding aside
+    plain = SAMAudio.init_random(cfg, seed=0, device=device, tokenizer=tok)
+    in_rank = plain.separate(batch10, noise=refs["noise"]["k1"].to(device)).target[0]
+    del plain
+    torch.cuda.empty_cache()
+    model = SAMAudio.init_random(cfg, seed=0, device=device, tokenizer=tok).shard(
+        meshes["dp2tp2"])
+    res = run("k1", model, batch10, MIXTURE_SECONDS, refs["k1"])
+    out["k1"].update(corr_in_rank_unsharded=corr(res.target[0], in_rank),
+                     corr_in_rank_vs_script=corr(in_rank, refs["k1"]),
+                     max_abs_in_rank_vs_script=float(np.abs(in_rank - refs["k1"]).max()))
+    model.text_ranker = ClapRanker(ClapRankerConfig(), allow_random=True, device=device)
+    seen = []
+    spy_scores(model.text_ranker, seen)
+    run("k8", model, batch10, MIXTURE_SECONDS, refs["k8"], reranking_candidates=8)
+    # the winner must be the unsharded one where the unsharded score margin
+    # exceeds the spread of the bf16 scores between the two runs
+    require(bool(seen), f"parallel k8 on rank {rank}: the on-device scoring path was not "
+            "taken")
+    got, want = seen[-1][0], refs["k8_scores"]
+    spread = float(np.abs(got - want).max())
+    top2 = np.sort(want)[-2:]
+    margin = float(top2[1] - top2[0])
+    same = int(np.argmax(got)) == int(np.argmax(want))
+    out["k8"].update(winner=int(np.argmax(got)), ref_winner=int(np.argmax(want)),
+                     score_spread=spread, ref_margin=margin)
+    require(same or margin <= spread, f"parallel k8 on rank {rank}: winner "
+            f"{int(np.argmax(got))} vs {int(np.argmax(want))} with margin {margin:.3e} > "
+            f"spread {spread:.3e}")
+    del model
+    torch.cuda.empty_cache()
+
+    model = SAMAudio.init_random(cfg, seed=0, device=device, tokenizer=tok).quantize(4)
+    model.shard(meshes["dp2tp2"])
+    run("k1_int4", model, batch10, MIXTURE_SECONDS, refs["k1_int4"])
+    del model
+    torch.cuda.empty_cache()
+
+    model = SAMAudio.init_random(cfg, seed=0, device=device, tokenizer=tok)
+    model.sp_mesh = meshes["sp"]
+    run("sp", model, batch48, SP_SECONDS, refs["sp"])
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_train(rank, device, meshes):
+    """(c) training at full width, dp2 x tp2, 2 steps of a global batch of 4
+    x 10 s (synthetic features). Each rank holds a tp half of the DiT's
+    fp32 masters, gradients, AdamW moments and EMA (about 0.58B parameters:
+    14 GB with the moments' temporaries) plus remat="full" activations of its
+    2 rows; TRAIN_LAYERS sets the depth."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from sam_audio_tpu_torch import SAMAudioConfig
+    from sam_audio_tpu_torch.models.init import sam_audio_init
+    from sam_audio_tpu_torch.train.flow_matching import Trainer, synthetic_batch
+    from sam_audio_tpu_torch.utils import tree_leaves_with_path
+
+    cfg = SAMAudioConfig()
+    cfg = dataclasses.replace(cfg, transformer=dataclasses.replace(
+        cfg.transformer, n_layers=TRAIN_LAYERS))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    trainer = Trainer(cfg, sam_audio_init(cfg, torch.Generator(device=device).manual_seed(0),
+                                          device),
+                      mesh=meshes["dp2tp2"], device=device, learning_rate=1e-4,
+                      warmup_steps=1, total_steps=2, lr_schedule="cosine", ema_decay=0.999)
+    local = sum(x.numel() for _, x in tree_leaves_with_path(trainer.state.params)
+                if x.requires_grad)
+    wq = trainer.state.params["transformer"]["layers"]["attention"]["wq"]["weight"]
+    before = wq.detach().clone()
+    gen = torch.Generator(device=device).manual_seed(9)
+    steps = []
+    for _ in range(2):
+        batch = synthetic_batch(cfg, gen, batch_size=4, t_frames=250, text_len=16)
+        reset_counts()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        m = trainer.step(batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize(device)
+        steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
+                      "grad_norm": gnorm, "launches": read_counts()})
+        require(math.isfinite(loss) and math.isfinite(gnorm),
+                f"parallel train on rank {rank}: loss {loss}, grad norm {gnorm}")
+    require(bool((wq.detach() != before).any()), f"parallel train on rank {rank}: wq did not move")
+    out = {"layers": TRAIN_LAYERS, "local_trainable_params": local, "steps": steps,
+           "peak_bytes": torch.cuda.max_memory_allocated(device)}
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def gloo_cuda_probe(device):
+    """The gloo collectives that parallel/comm.py passes CUDA tensors to as
+    they are (all_reduce: sum of fp32 and int32, max; all_gather), each
+    held against the same collective on host copies. Point-to-point is
+    staged through host memory and not probed."""
+    import torch
+    import torch.distributed as dist
+
+    n, r = dist.get_world_size(), dist.get_rank()
+    out = {}
+    for name, x, op in (("all_reduce_sum_fp32", torch.arange(6.0) + r, dist.ReduceOp.SUM),
+                        ("all_reduce_max_fp32", torch.arange(6.0) * r, dist.ReduceOp.MAX),
+                        ("all_reduce_sum_int32", torch.arange(6, dtype=torch.int32) * r,
+                         dist.ReduceOp.SUM)):
+        card, host = x.to(device), x.clone()
+        dist.all_reduce(card, op=op)
+        dist.all_reduce(host, op=op)
+        out[name] = bool(torch.equal(card.cpu(), host))
+    x = torch.arange(6.0) + r
+    card = [torch.empty(6, device=device) for _ in range(n)]
+    host = [torch.empty(6) for _ in range(n)]
+    dist.all_gather(card, x.to(device))
+    dist.all_gather(host, x)
+    out["all_gather_fp32"] = all(torch.equal(a.cpu(), b) for a, b in zip(card, host))
+    require(all(out.values()), f"gloo on CUDA tensors disagrees with gloo on host copies: {out}")
+    return out
+
+
+def nccl_check(device):
+    """The NCCL collectives on a world of one rank (all_reduce, all_gather,
+    broadcast of a card tensor)."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.arange(8, dtype=torch.float32, device=device)
+    y = x.clone()
+    dist.all_reduce(y)
+    parts = [torch.empty_like(x)]
+    dist.all_gather(parts, x)
+    dist.broadcast(y, 0)
+    require(torch.equal(y, x) and torch.equal(parts[0], x), "nccl: a one-rank collective "
+            "changed its tensor")
+    return {"backend": dist.get_backend(), "all_reduce": True, "all_gather": True,
+            "broadcast": True}
+
+
+def parallel_rank(rank, world, port, full, device_type):
+    """One rank of the phase's world (torch.multiprocessing.spawn)."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from sam_audio_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
+
+    device = init_distributed(device_type, f"127.0.0.1:{port}", world, rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"rank": rank, "device": str(device), "backend": dist.get_backend()}
+    try:
+        if world == 1:
+            meshes = {"dp2tp2": make_mesh(1, 1), "dp4": make_mesh(1, 1), "sp": Mesh({"sp": 1})}
+            if device.type == "cuda":
+                res["nccl"] = nccl_check(device)
+        else:
+            meshes = {"dp2tp2": make_mesh(2, 2), "dp4": make_mesh(4, 1),
+                      "sp": Mesh({"sp": world})}
+            if res["backend"] == "gloo" and device.type == "cuda":
+                res["gloo_cuda"] = gloo_cuda_probe(device)
+        t0 = time.perf_counter()
+        res["small"] = parallel_small(rank, device, meshes)
+        res["small_ms"] = (time.perf_counter() - t0) * 1e3
+        if full:
+            refs = torch.load(os.path.join(parallel_dir(), "refs.pt"), weights_only=False)
+            res["full"] = parallel_full(rank, device, meshes, refs)
+            res["train"] = parallel_train(rank, device, meshes)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(parallel_dir(), f"world{world}_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(world, full, timeout_s=900, device_type="cuda"):
+    """Spawn `world` ranks running parallel_rank; a rank's failure fails the
+    phase. Returns the ranks' results."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    ctx = mp.spawn(parallel_rank, args=(world, free_port(), full, device_type), nprocs=world,
+                   join=False)
+    try:
+        while not ctx.join(timeout=10):
+            require(time.perf_counter() - t0 < timeout_s,
+                    f"parallel: the {world}-rank world did not finish in {timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    out = []
+    for rank in range(world):
+        with open(os.path.join(parallel_dir(), f"world{world}_rank{rank}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    log(f"  {world}-rank world ({out[0]['backend']}, devices "
+        f"{sorted({r['device'] for r in out})}): {(time.perf_counter() - t0) * 1e3:.0f} ms "
+        "wall, process start included")
+    return out
+
+
+def parallel_cli():
+    """(d) torchrun with 4 processes: the training command line on a dp2 x tp2
+    mesh of the small config, on the card."""
+    import dataclasses
+    import shutil
+
+    out = os.path.join(parallel_dir(), "cli")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    with open(os.path.join(out, "small.json"), "w") as f:
+        json.dump(dataclasses.asdict(small_config()), f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(PARALLEL_WORLD), "-m", "sam_audio_tpu_torch.train",
+           "--synthetic", "4", "--random-init", "--config", os.path.join(out, "small.json"),
+           "--batch-size", "4", "--dp", "2", "--tp", "2", "--device", "cuda",
+           "--ckpt-dir", os.path.join(out, "ckpt"), "--export-dir", os.path.join(out, "export")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=600)
+    ms = (time.perf_counter() - t0) * 1e3
+    tail = "\n".join((proc.stdout + proc.stderr).strip().splitlines()[-12:])
+    log(f"  torchrun (4 processes) exit {proc.returncode} in {ms:.0f} ms:\n" + tail)
+    require(proc.returncode == 0, "parallel: the torchrun training command line failed")
+    require(os.path.exists(os.path.join(out, "export", "params.npz")),
+            "parallel: the torchrun run wrote no export")
+    return {"exit": proc.returncode, "ms": ms, "backend_line": next(
+        (ln for ln in (proc.stdout + proc.stderr).splitlines() if "backend" in ln), "")}
+
+
+def parallel_phase(cfg, tok, proc, n_layers, nfe, smi):
+    """Phase 18: the unsharded references here, then a 4-rank world (NCCL,
+    one rank a card, with four or more cards; else gloo, the 4 ranks on one
+    card), a one-rank NCCL world on one card, and the torchrun command line.
+    Every rank's launches, errors, correlations, wall ms and peak memory are
+    logged. Ranks that share one card measure no scaling."""
+    import torch
+
+    cards = torch.cuda.device_count()
+    log(f"[parallel] {smi}; {cards} card(s): a {PARALLEL_WORLD}-rank world over "
+        f"{'NCCL, one rank a card' if cards >= PARALLEL_WORLD else 'gloo, sharing one card'}")
+    refs = parallel_references(cfg, tok, proc, n_layers, nfe)
+    torch.cuda.empty_cache()
+    ranks = run_world(PARALLEL_WORLD, full=True)
+    record = {"world": {"ranks": PARALLEL_WORLD, "backend": ranks[0]["backend"],
+                        "cards": cards}, "ref_launches": refs["launches"],
+              "unsharded_perturbed_corr": refs["k1_perturbed_corr"], "ranks": []}
+    for r in ranks:
+        log(f"  rank {r['rank']} ({r['device']}):")
+        for name, x in r["small"].items():
+            log(f"    small {name}: {x}")
+        if "gloo_cuda" in r:
+            log(f"    gloo collectives on CUDA tensors equal gloo on host copies: {r['gloo_cuda']}")
+        k1 = r["full"]["k1"]
+        log(f"    unsharded in this rank vs the script's: corr "
+            f"{k1['corr_in_rank_vs_script']:.5f}, max abs {k1['max_abs_in_rank_vs_script']:.3e};"
+            f" sharded vs this rank's unsharded: corr {k1['corr_in_rank_unsharded']:.5f}")
+        for name, x in r["full"].items():
+            log(f"    full {name}: ms {x['ms']:.1f}, corr {x['corr']:.5f} (bound "
+                f"{x['corr_bound']}), peak {x['peak_bytes'] / 2**30:.2f} GiB, launches "
+                f"{x['launches']}" + (f", winner {x['winner']} vs {x['ref_winner']}, margin "
+                                      f"{x['ref_margin']:.3e}, spread {x['score_spread']:.3e}"
+                                      if name == "k8" else ""))
+        tr = r["train"]
+        log(f"    train ({tr['layers']} layers, {tr['local_trainable_params']:,} trainable "
+            f"parameters on this rank): steps "
+            f"{[(round(s['ms'], 1), round(s['loss'], 5)) for s in tr['steps']]}, peak "
+            f"{tr['peak_bytes'] / 2**30:.2f} GiB, launches {tr['steps'][-1]['launches']}")
+        record["ranks"].append(r)
+        full = r["full"]
+        require(full["k1"]["launches"]["fused_glue_attention"] == n_layers * nfe
+                and full["k1"]["launches"]["fused_residual_unit"] == 36,
+                f"parallel: rank {r['rank']} dp2tp2 k=1 launches {full['k1']['launches']}")
+        require(full["k1_int4"]["launches"]["matmul_int4"] > 0,
+                f"parallel: rank {r['rank']} int4 tp2 launched no int4 product")
+        require(full["sp"]["launches"]["fused_residual_unit"] > 0,
+                f"parallel: rank {r['rank']} sp4 launched no residual unit")
+        require(r["train"]["steps"][-1]["launches"]["fused_glue_attention"] > 0,
+                f"parallel: rank {r['rank']} training launched no kernel 1")
+    losses = {tuple(round(s["loss"], 6) for s in r["train"]["steps"]) for r in ranks}
+    require(len(losses) == 1, f"parallel: the ranks report different losses {losses}")
+    if cards < PARALLEL_WORLD:
+        log("[parallel] the same small-model calls on a one-rank NCCL world")
+        one = run_world(1, full=False)
+        require(one[0]["backend"] == "nccl", f"parallel: the one-rank world ran "
+                f"{one[0]['backend']}")
+        log(f"  rank 0: {one[0]['nccl']}; small {one[0]['small']}")
+        record["one_rank_nccl"] = one[0]
+    record["cli"] = parallel_cli()
+    log("  times from ranks that share one card measure no scaling" if cards < PARALLEL_WORLD
+        else "  one rank a card")
+    return record
+
+
 def _wav_bytes(x, sr):
     import io
     import wave
@@ -2704,6 +3266,17 @@ def main() -> int:
         with open(os.path.join(HERE, "build", "chip_smoke_kernels.json"), "w") as f:
             json.dump(record, f, indent=1)
         log(json.dumps({k: v for k, v in record.items() if "shapes" not in k}))
+        log(smi)
+        return 0
+    if sys.argv[1:3] == ["--phase", "parallel"]:
+        # a short run for work on the parallel phase: no kernel checks, no
+        # result line
+        tok = ByteFallbackTokenizer(cfg.text_encoder.vocab_size)
+        proc = SAMAudioProcessor(cfg.audio_codec.hop_length, cfg.audio_codec.sample_rate)
+        record = parallel_phase(cfg, tok, proc, cfg.transformer.n_layers, 32, smi)
+        os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+        with open(os.path.join(HERE, "build", "chip_smoke_parallel.json"), "w") as f:
+            json.dump({"parallel": record, "power": smi}, f, indent=1)
         log(smi)
         return 0
     for check in checks.values():
@@ -2792,6 +3365,10 @@ def main() -> int:
     # 17. training at full width: records -> Trainer -> checkpoint/resume ->
     # export -> separate; LoRA; span; the command line
     train = train_phase(cfg, tok, proc, n_layers)
+    torch.cuda.empty_cache()
+
+    # 18. parallelism: dp x tp, sp, int4 under tp, training; torchrun
+    parallel = parallel_phase(cfg, tok, proc, n_layers, nfe, smi)
 
     def entry(res, source, replaces, launches, ms, plain, lib, bms, by, dev, lib_dev):
         # "tpu_source", "max_err" and "kernel_ms" repeat "replaces",
@@ -2802,6 +3379,7 @@ def main() -> int:
         if "fwd_bwd" in res:   # forward + backward through the autograd Function
             extra["forward_backward"] = res["fwd_bwd"]
         extra["train_launches_per_step"] = train["launches_per_step"][res["name"]]
+        extra["parallel_launches_per_rank"] = parallel_launches[res["name"]]
         return {**extra, "name": res["name"], "route": "cuda", "source": source,
                 "replaces": replaces, "tpu_source": replaces, "launches": launches,
                 "max_abs_err": res["max_abs_err"], "max_err": res["max_abs_err"],
@@ -2812,6 +3390,15 @@ def main() -> int:
                 "ms_scope": "one separate's launches; ms and library_ms include the host "
                             "wrapper, device_ms and library_device_ms are CUDA-graph replays"}
 
+    # each kernel's launches per rank on its sharded path (kernel 2: the
+    # unsharded 48 s reference that the sp4 ring is held against)
+    paths = {"fused_glue_attention": "k1", "fused_residual_unit": "k1",
+             "matmul_int4": "k1_int4"}
+    parallel_launches = {
+        name: {f"rank{r['rank']}": r["full"][path]["launches"][name]
+               for r in parallel["ranks"]} for name, path in paths.items()}
+    parallel_launches["flash_attention"] = {
+        "unsharded_48s": parallel["ref_launches"]["sp"]["flash_attention"]}
     kernels = []
     for res, src, rep, n in (
             (k1, "sam_audio_tpu_torch/csrc/fused_attention.cu",
@@ -2837,7 +3424,8 @@ def main() -> int:
                "rerank_k8_10s": rerank, "stream_60s": stream, "judge_k8_10s": judge,
                "int4_10s": int4, "int8_10s": int8, "visual_10s": visual,
                "visual_stream_30s": visual_stream, "spans_10s": spans, "serve": serve,
-               "eval": evaluation, "small_train": small_train, "train": train, "power": smi}
+               "eval": evaluation, "small_train": small_train, "train": train,
+               "parallel": parallel, "power": smi}
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
         json.dump({"kernels": kernels, "summary": summary,

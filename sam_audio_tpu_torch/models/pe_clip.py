@@ -115,18 +115,22 @@ def encode_images(params, x: torch.Tensor, cfg: PerceptionEncoderConfig,
     score_dtype = (compute_dtype if compute_dtype is not None
                    and torch.finfo(compute_dtype).bits < 32 else None)
 
+    # under tensor parallelism (parallel/mesh.py) each rank runs its block of
+    # heads and of the MLP's hidden units; wo and fc2 sum the partial outputs
+    mlp = int(w * cfg.mlp_ratio)
     for layer in unstack_layers(params["layers"]):
         y = N.layernorm(layer["ln1"], h)
         att = layer["attn"]
-        q, k, v = (N.linear(att[nm], y, compute_dtype).reshape(n, -1, heads, hd)
-                   for nm in ("wq", "wk", "wv"))
+        q, k, v = (N.whole_heads(N.column_linear(att[nm], y, compute_dtype, w), hd)
+                   .reshape(n, y.shape[1], -1, hd) for nm in ("wq", "wk", "wv"))
         if rope is not None:
             q, k = apply_rope(q, *rope), apply_rope(k, *rope)
-        o = attend(q, k, v, score_dtype=score_dtype).reshape(n, -1, w)
-        h = h + N.linear(att["wo"], o, compute_dtype)
+        o = attend(q, k, v, score_dtype=score_dtype).reshape(n, y.shape[1], -1)
+        h = h + N.row_linear(att["wo"], o, compute_dtype, w)
         y = N.layernorm(layer["ln2"], h)
-        y = F.gelu(N.linear(layer["mlp"]["fc1"], y, compute_dtype), approximate="tanh")
-        h = h + N.linear(layer["mlp"]["fc2"], y, compute_dtype)
+        y = F.gelu(N.column_linear(layer["mlp"]["fc1"], y, compute_dtype, mlp),
+                   approximate="tanh")
+        h = h + N.row_linear(layer["mlp"]["fc2"], y, compute_dtype, mlp)
     h = N.layernorm(params["ln_post"], h)
 
     # attentive pooling: one probe query over all tokens
@@ -157,6 +161,8 @@ class PerceptionEncoder:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.compute_dtype = compute_dtype
+        # set by SAMAudio.shard: the layers hold this rank's tp blocks
+        self.mesh = None
         if compute_dtype is not None and compute_dtype != torch.float32:
             # the stacked layer norms are (layers, width): kept fp32, as read
             params = cast_matmul_weights(params, compute_dtype, keep=("ln1", "ln2"))
@@ -187,6 +193,12 @@ class PerceptionEncoder:
     def __call__(self, videos: Sequence[np.ndarray]) -> torch.Tensor:
         """videos: per item (N_i, C, H, W) frames -> (B, N_max, dim) fp32 on
         the device, zero rows past each video's end."""
+        from sam_audio_tpu_torch.parallel import comm
+
+        with comm.use_tp(None if self.mesh is None else self.mesh.group("tp")):
+            return self._encode(videos)
+
+    def _encode(self, videos: Sequence[np.ndarray]) -> torch.Tensor:
         feats: List[torch.Tensor] = []
         bs = self.cfg.batch_size
         for video in videos:

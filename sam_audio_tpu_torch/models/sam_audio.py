@@ -39,6 +39,8 @@ from sam_audio_tpu_torch.models.dit import dit_apply
 from sam_audio_tpu_torch.models.t5 import t5_encode
 from sam_audio_tpu_torch.ops import nn as N
 from sam_audio_tpu_torch.ops.ode import odeint
+from sam_audio_tpu_torch.parallel import comm
+from sam_audio_tpu_torch.parallel.mesh import dp_block
 
 logger = logging.getLogger(__name__)
 
@@ -81,11 +83,12 @@ def align_inputs(params, cfg: SAMAudioConfig, noisy_audio, audio_features,
 def forward(params, cfg: SAMAudioConfig, noisy_audio, audio_features,
             text_features, time, masked_video_features=None, text_mask=None,
             anchor_ids=None, anchor_alignment=None, audio_pad_mask=None,
-            compute_dtype=None, remat=None, dropout_generator=None):
+            compute_dtype=None, remat=None, dropout_generator=None, dit_fn=None):
     """One ODE function evaluation. noisy_audio/audio_features: (B, T,
     2*latent); text_features: (B, L, text_dim); time: (B,). Returns the
     velocity (B, T, out_channels). `remat` and `dropout_generator` are for
-    training (models/dit.py dit_apply); inference passes neither."""
+    training (models/dit.py dit_apply); inference passes neither. `dit_fn`
+    replaces the DiT (the sequence-parallel trunk; inference only)."""
     aligned = align_inputs(params, cfg, noisy_audio, audio_features,
                            masked_video_features, anchor_ids, anchor_alignment,
                            compute_dtype)
@@ -96,6 +99,12 @@ def forward(params, cfg: SAMAudioConfig, noisy_audio, audio_features,
         memory = memory + t_emb.to(memory.dtype)
     else:
         memory = t_emb if compute_dtype is None else t_emb.to(compute_dtype)
+    if dit_fn is not None:
+        if remat is not None or dropout_generator is not None:
+            raise ValueError("dit_fn is inference-only")
+        return dit_fn(params["transformer"], aligned, time, cfg=cfg.transformer,
+                      padding_mask=audio_pad_mask, memory=memory,
+                      memory_padding_mask=text_mask, compute_dtype=compute_dtype)
     return dit_apply(
         params["transformer"], aligned, time, cfg=cfg.transformer,
         padding_mask=audio_pad_mask, memory=memory,
@@ -108,10 +117,19 @@ def separate_latents(params, audios, text_ids, text_mask, anchor_ids,
                      anchor_alignment, audio_pad_mask, noise, *,
                      cfg: SAMAudioConfig, candidates: int = 1,
                      ode_method: str = "midpoint", ode_step_size: float = 2 / 32,
-                     video_features: Optional[torch.Tensor] = None):
+                     video_features: Optional[torch.Tensor] = None, mesh=None,
+                     sp_mesh=None, sp_axis: str = "sp"):
     """Encode -> condition -> ODE. audios (B, 1, Tw); noise (B*k, T, 2C);
     video_features (B, vision_dim, T) or None for no visual prompt.
-    Returns the generated latents (B*k, T, 2C) = [target || residual]."""
+    Returns the generated latents (B*k, T, 2C) = [target || residual].
+
+    `mesh` (parallel.mesh.Mesh, from `SAMAudio.shard`): when its "dp" size
+    divides B*k, each dp rank solves its block of the rows (as JAX pins
+    them, models/sam_audio.py:222-237) and the blocks are gathered after
+    the ODE; otherwise every rank solves all rows. The codec and T5 run
+    whole on every rank. `sp_mesh`: the DiT trunk runs sequence-parallel
+    over its `sp_axis` axis (parallel/sp.py); the velocity is gathered
+    whole for the ODE on every rank."""
     compute_dtype = DTYPES[cfg.compute_dtype]
     lat = dacvae.encode(params["audio_codec"], audios, cfg.audio_codec,
                         compute_dtype=compute_dtype)          # (B, C, T)
@@ -133,6 +151,26 @@ def separate_latents(params, audios, text_ids, text_mask, anchor_ids,
     anchor_ids, anchor_alignment, audio_pad_mask = map(
         rep, (anchor_ids, anchor_alignment, audio_pad_mask))
     bk = audio_features.shape[0]
+    noise = noise.float()
+    dp_group = None if mesh is None else mesh.group("dp")
+    dp = comm.size(dp_group)
+    if dp > 1 and bk % dp == 0:
+        rows = dp_block(bk, mesh)
+        audio_features, text_features, text_mask, video_features, anchor_ids, \
+            anchor_alignment, audio_pad_mask, noise = (
+                x[rows] for x in (audio_features, text_features, text_mask, video_features,
+                                  anchor_ids, anchor_alignment, audio_pad_mask, noise))
+        bk //= dp
+    else:
+        dp_group = None
+
+    dit_fn = None
+    if sp_mesh is not None:
+        from sam_audio_tpu_torch.parallel.sp import dit_apply_sp, gather_sequence
+
+        def dit_fn(*args, **kwargs):
+            return gather_sequence(dit_apply_sp(*args, mesh=sp_mesh, axis_name=sp_axis,
+                                                **kwargs), sp_mesh, sp_axis)
 
     def vector_field(tt, y):
         v = forward(
@@ -140,12 +178,12 @@ def separate_latents(params, audios, text_ids, text_mask, anchor_ids,
             text_features=text_features, time=tt.expand(bk),
             masked_video_features=video_features, text_mask=text_mask,
             anchor_ids=anchor_ids, anchor_alignment=anchor_alignment,
-            audio_pad_mask=audio_pad_mask, compute_dtype=compute_dtype,
+            audio_pad_mask=audio_pad_mask, compute_dtype=compute_dtype, dit_fn=dit_fn,
         )
         return v.to(y.dtype)
 
-    return odeint(vector_field, noise.float(), method=ode_method,
-                  step_size=ode_step_size)
+    latents = odeint(vector_field, noise, method=ode_method, step_size=ode_step_size)
+    return comm.gather(latents, 0, dp_group)
 
 
 def decode_channel(params, latents, *, cfg: SAMAudioConfig, channel: int = 0):
@@ -212,6 +250,10 @@ class SAMAudio:
         # (models/span_predictor.py); load_sam_audio attaches the one of
         # <snapshot>/span_predictor/
         self.span_predictor = span_predictor
+        # parallel.mesh.Mesh set by shard(): tp-split leaves, rows over dp
+        self.mesh = None
+        # a mesh with an "sp" axis: the DiT trunk runs sequence-parallel
+        self.sp_mesh = None
         self._warned_visual_host = False
 
     @classmethod
@@ -306,18 +348,42 @@ class SAMAudio:
         Returns self."""
         from sam_audio_tpu_torch.ops.quant import quantize_pe_params, quantize_sam_audio_params
 
+        if self.mesh is not None and self.mesh.axis_size("tp") > 1:
+            raise ValueError(
+                "quantize() before shard(): the per-row scales of a row-parallel "
+                "leaf are taken over the whole row")
         self.params = quantize_sam_audio_params(self.params, bits)
         if bits == 8 and self.vision_encoder is not None:
             self.vision_encoder.params = quantize_pe_params(self.vision_encoder.params)
         return self
 
+    def shard(self, mesh=None, tp: int = 1):
+        """Split the params over a (dp, tp) mesh of the torch.distributed
+        ranks (parallel/mesh.py): each rank keeps its block of every leaf a
+        tensor-parallel rule matches (the DiT, T5, and an attached PE vision
+        tower), the rest stays whole; separate() then runs the towers
+        tensor-parallel and splits the B*k rows over dp. Every rank calls it
+        with the same arguments and gets the same SeparationResult from
+        separate(). `quantize()` comes first. Returns self."""
+        from sam_audio_tpu_torch.parallel.mesh import make_mesh, shard_params
+
+        if mesh is None:
+            mesh = make_mesh(tp=tp)
+        self.params = shard_params(self.params, mesh)
+        if self.vision_encoder is not None:
+            self.vision_encoder.params = shard_params(self.vision_encoder.params, mesh)
+            self.vision_encoder.mesh = mesh
+        self.mesh = mesh
+        return self
+
+    def _parallel_kw(self):
+        if self.sp_mesh is not None and self.mesh is not None and self.mesh.size > 1:
+            raise ValueError("sp_mesh and a sharded model (shard()) do not combine: the "
+                             "sequence-parallel trunk takes whole parameters")
+        return dict(mesh=self.mesh, sp_mesh=self.sp_mesh)
+
     @torch.inference_mode()
-    def separate(self, batch, noise=None, ode_opt: Optional[Dict[str, Any]] = None,
-                 reranking_candidates: int = 1,
-                 generator: Optional[torch.Generator] = None,
-                 predict_spans: bool = False, preview_nfe: Optional[int] = None,
-                 visual_stride: int = 1,
-                 max_direct_seconds: Optional[float] = None) -> SeparationResult:
+    def separate(self, batch, noise=None, **kwargs) -> SeparationResult:
         """Separate `batch` (a processor.Batch). `noise` (B or B*k, T, 2C)
         is injected as in reference model.py:247-338; without it the noise
         is drawn from `generator` on the model's device.
@@ -348,7 +414,22 @@ class SAMAudio:
         `span_predictor` predicts when the described sound occurs and its
         spans become "+" anchors of `batch` (in place). Without a predictor it
         raises, unless `allow_random_towers` (then it is skipped, as in JAX);
-        past the direct limit it raises."""
+        past the direct limit it raises.
+
+        Keyword arguments: ode_opt, reranking_candidates, generator,
+        predict_spans, preview_nfe, visual_stride, max_direct_seconds. After
+        `shard()` every rank calls it with the same batch and noise (or a
+        generator in the same state) and returns the same result."""
+        with comm.use_tp(None if self.mesh is None else self.mesh.group("tp")):
+            return self._separate(batch, noise, **kwargs)
+
+    def _separate(self, batch, noise=None, ode_opt: Optional[Dict[str, Any]] = None,
+                 reranking_candidates: int = 1,
+                 generator: Optional[torch.Generator] = None,
+                 predict_spans: bool = False, preview_nfe: Optional[int] = None,
+                 visual_stride: int = 1,
+                 max_direct_seconds: Optional[float] = None) -> SeparationResult:
+        """separate() inside the model's tensor-parallel group."""
         if preview_nfe is not None and (int(preview_nfe) < 2 or int(preview_nfe) % 2):
             raise ValueError(
                 "preview_nfe must be an even integer >= 2 (midpoint previews "
@@ -408,6 +489,7 @@ class SAMAudio:
         def as_long(x):
             return torch.as_tensor(np.asarray(x), dtype=torch.long, device=dev)
 
+        par = self._parallel_kw()
         core_args = (self.params, audios, text_ids, text_mask, as_long(batch.anchor_ids),
                      as_long(batch.anchor_alignment),
                      torch.as_tensor(np.asarray(batch.audio_pad_mask), dtype=torch.bool,
@@ -423,18 +505,18 @@ class SAMAudio:
             # rank on cheap previews, then the full solve of the winners only
             preview = separate_latents(*core_args, noise, cfg=cfg, candidates=k,
                                        ode_method=method, ode_step_size=2.0 / preview_nfe,
-                                       video_features=video_features)
+                                       video_features=video_features, **par)
             idxs = self._choose(batch, decode_channel_chunked(
                 self.params, preview, cfg=cfg, channel=0), sizes, k)[0]
             chosen = separate_latents(
                 *core_args, gather_candidates(noise, idxs, candidates=k), cfg=cfg,
                 candidates=1, ode_method=method, ode_step_size=float(step),
-                video_features=video_features)
+                video_features=video_features, **par)
             target = trimmed(decode_channel(self.params, chosen, cfg=cfg, channel=0))
         else:
             latents = separate_latents(*core_args, noise, cfg=cfg, candidates=k,
                                        ode_method=method, ode_step_size=float(step),
-                                       video_features=video_features)
+                                       video_features=video_features, **par)
             if rerank:
                 # all k targets are decoded for the ranker; the residual only
                 # for the winner (the JAX package's lazy decode)

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from sam_audio_tpu_torch.config import T5EncoderConfig
 from sam_audio_tpu_torch.ops import nn as N
+from sam_audio_tpu_torch.parallel import comm
 from sam_audio_tpu_torch.utils import unstack_layers
 
 
@@ -55,22 +56,30 @@ def compute_position_bias(rel_bias_weight: torch.Tensor, q_len: int, k_len: int,
 
 def _block_apply(params, h, position_bias, mask_bias, cfg: T5EncoderConfig,
                  compute_dtype=None):
+    """Under tensor parallelism (parallel/mesh.py) q/k/v and ff/wi hold this
+    rank's block and o / ff/wo the matching input columns: the rank attends
+    over its heads, with its heads' slice of the whole relative bias."""
     b, s, _ = h.shape
     hd, nh = cfg.head_dim, cfg.num_heads
+    full = nh * hd
     x = N.rmsnorm(params["attn"]["layer_norm"], h, cfg.layer_norm_eps)
-    q = N.linear(params["attn"]["q"], x, compute_dtype).reshape(b, s, nh, hd)
-    k = N.linear(params["attn"]["k"], x, compute_dtype).reshape(b, s, nh, hd)
-    v = N.linear(params["attn"]["v"], x, compute_dtype).reshape(b, s, nh, hd)
+    q, k, v = (N.whole_heads(N.column_linear(params["attn"][name], x, compute_dtype, full),
+                             hd).reshape(b, s, -1, hd) for name in ("q", "k", "v"))
+    h_loc = q.shape[2]
+    if h_loc < nh:
+        r = comm.rank(comm.tp_group())
+        position_bias = position_bias[:, r * h_loc:(r + 1) * h_loc]
     # T5 omits the 1/sqrt(d) attention scaling (absorbed into init).
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     scores = scores + position_bias + mask_bias
     weights = torch.softmax(scores, dim=-1).to(v.dtype)
     attn = torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float()).to(v.dtype)
-    h = h + N.linear(params["attn"]["o"], attn.reshape(b, s, nh * hd), compute_dtype)
+    h = h + N.row_linear(params["attn"]["o"], attn.reshape(b, s, h_loc * hd),
+                         compute_dtype, full)
 
     x = N.rmsnorm(params["ff"]["layer_norm"], h, cfg.layer_norm_eps)
-    x = F.relu(N.linear(params["ff"]["wi"], x, compute_dtype))
-    return h + N.linear(params["ff"]["wo"], x, compute_dtype)
+    x = F.relu(N.column_linear(params["ff"]["wi"], x, compute_dtype, cfg.d_ff))
+    return h + N.row_linear(params["ff"]["wo"], x, compute_dtype, cfg.d_ff)
 
 
 def t5_encode(params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
@@ -81,8 +90,11 @@ def t5_encode(params, input_ids: torch.Tensor, attention_mask: torch.Tensor,
     if compute_dtype is not None:
         h = h.to(compute_dtype)
     s = input_ids.shape[1]
+    rel = params["relative_attention_bias"]["weight"]
+    if N.out_features(params["blocks"]["attn"]["q"]) < cfg.num_heads * cfg.head_dim:
+        rel = N.tp_replicated(rel)   # each tensor-parallel rank reads its heads
     position_bias = compute_position_bias(
-        params["relative_attention_bias"]["weight"].float(), s, s,
+        rel.float(), s, s,
         cfg.relative_attention_num_buckets, cfg.relative_attention_max_distance,
     )
     mask = attention_mask.bool()

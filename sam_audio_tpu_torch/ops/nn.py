@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from sam_audio_tpu_torch.ops.quant import linear_int4, linear_int8
+from sam_audio_tpu_torch.parallel import comm
 
 
 def _cast_pair(x: torch.Tensor, w: torch.Tensor, compute_dtype):
@@ -38,6 +39,82 @@ def linear(params, x: torch.Tensor, compute_dtype: Optional[torch.dtype] = None)
         # added after the product's rounding, as the JAX einsum + add does
         y = y + params["bias"].to(y.dtype)
     return y
+
+
+def in_features(params) -> int:
+    for key in ("weight", "w8", "w4"):
+        if key in params:
+            return params[key].shape[-1]
+    raise KeyError("not a linear's parameters")
+
+
+def out_features(params) -> int:
+    if "w4" in params:   # two rows a byte
+        return 2 * params["w4"].shape[-2]
+    return (params["weight"] if "weight" in params else params["w8"]).shape[-2]
+
+
+# Tensor parallelism (parallel/mesh.py's rules, parallel/comm.py's
+# collectives). Under an active tensor-parallel group a split leaf holds this
+# rank's block; the caller passes the full width so that a split leaf is told
+# from a whole one (a leaf whose dimension does not divide stays whole). A
+# full width of 0 marks a linear that no rule splits.
+
+
+def column_linear(params, x: torch.Tensor, compute_dtype=None, full_out: int = 0):
+    """A column-parallel linear: with `params` holding this rank's block of
+    the `full_out` output rows, this rank's block of the output; the whole
+    input's gradient is summed over the group (Megatron's f)."""
+    group = comm.tp_group()
+    if group is not None and full_out and out_features(params) != full_out:
+        x = comm.copy_to(x, group)
+    return linear(params, x, compute_dtype)
+
+
+def row_linear(params, x: torch.Tensor, compute_dtype=None, full_in: int = 0):
+    """A row-parallel linear: with `params` holding this rank's block of the
+    `full_in` input columns, the partial products are summed over the group
+    (Megatron's g) and the whole bias is added once, after the sum. The
+    int8 path takes the activation's absmax over the whole input (a max over
+    the group) and sums the int32 products. `x` may be this rank's block or
+    whole (then its block is taken); with a whole weight a split `x` is
+    gathered."""
+    group = comm.tp_group()
+    w_in = in_features(params)
+    if group is None or not full_in or w_in == full_in:
+        if x.shape[-1] != w_in:
+            x = comm.gather(x, -1, group)
+        return linear(params, x, compute_dtype)
+    if x.shape[-1] != w_in:
+        x = comm.scatter(x, -1, group)
+    if "w8" in params:
+        return linear_int8(params, x, compute_dtype, group=group)
+    y = linear({"weight": params["weight"]}, x, compute_dtype)
+    y = comm.reduce_from(y.float(), group).to(y.dtype)
+    if "bias" in params:
+        y = y + params["bias"].to(y.dtype)
+    return y
+
+
+def gather_columns(y: torch.Tensor, full: int) -> torch.Tensor:
+    """The whole output of a column-parallel linear (blocks in rank order)."""
+    if y.shape[-1] == full:
+        return y
+    return comm.gather(y, -1, comm.tp_group())
+
+
+def whole_heads(y: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """A column-parallel q/k/v block that splits a head is gathered whole
+    (the split matched tp but not the head count); whole heads stay local."""
+    if y.shape[-1] % head_dim:
+        return comm.gather(y, -1, comm.tp_group())
+    return y
+
+
+def tp_replicated(w: torch.Tensor) -> torch.Tensor:
+    """A whole parameter used on this rank's heads only (per-head norms, T5's
+    relative bias): its gradient is summed over the group."""
+    return comm.copy_to(w, comm.tp_group())
 
 
 def embedding(params, ids: torch.Tensor):
@@ -94,17 +171,19 @@ def get_nonlinearity(kind: str):
 
 
 def projection(params, x, non_linearity: str, compute_dtype=None,
-               dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None):
+               dropout_rate: float = 0.0, generator: Optional[torch.Generator] = None,
+               hidden: int = 0):
     """w2(dropout(silu(w1(x)) * w3(x))) for swiglu, else w2(dropout(act(w1(x))))
     (reference: sam_audio/model/transformer.py:50-80; dropout in training
-    only, transformer.py:79)."""
-    h1 = linear(params["w1"], x, compute_dtype)
+    only, transformer.py:79). `hidden`: the full hidden width of a
+    tensor-parallel FFN (w1/w3 column-, w2 row-parallel); 0 for a whole one."""
+    h1 = column_linear(params["w1"], x, compute_dtype, hidden)
     if non_linearity == "swiglu":
-        h = F.silu(h1) * linear(params["w3"], x, compute_dtype)
+        h = F.silu(h1) * column_linear(params["w3"], x, compute_dtype, hidden)
     else:
         h = get_nonlinearity(non_linearity)(h1)
     h = dropout(h, dropout_rate, generator)
-    return linear(params["w2"], h, compute_dtype)
+    return row_linear(params["w2"], h, compute_dtype, hidden)
 
 
 # The FeedForward MLP has the projection's structure (reference

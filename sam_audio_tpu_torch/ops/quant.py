@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from sam_audio_tpu_torch.ops.int4_matmul import matmul_int4
+from sam_audio_tpu_torch.parallel import comm
 
 
 def quantize_linear(params):
@@ -53,16 +54,27 @@ def _int_matmul(x8: torch.Tensor, w8: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(x8, w8.t())[:m, :n]
 
 
-def linear_int8(params, x: torch.Tensor, compute_dtype=None):
+def linear_int8(params, x: torch.Tensor, compute_dtype=None, group=None):
     """y = (x8 . w8^T) * (s_act * s_w) + bias, returned in x's dtype (the
     accumulation dtype is fixed by the int8 path, so compute_dtype is
-    ignored, as in JAX)."""
+    ignored, as in JAX).
+
+    `group`: a row-parallel linear's tensor-parallel group (ops/nn.row_linear),
+    `x` and `w8` holding this rank's block of the input columns. The
+    per-token absmax is then the max over the group, the whole input's as in
+    JAX, and the int32 products are summed over the group before the scales
+    (the replicated `w_scale`) and the bias apply."""
     del compute_dtype
     xf = x.float()
-    s_act = torch.clamp(torch.amax(torch.abs(xf), dim=-1, keepdim=True), min=1e-12) / 127.0
+    amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
+    if group is not None:
+        amax = comm.all_reduce(amax, group, "max")
+    s_act = torch.clamp(amax, min=1e-12) / 127.0
     x8 = torch.round(xf / s_act).to(torch.int8)
     lead = x8.shape[:-1]
     y = _int_matmul(x8.reshape(-1, x8.shape[-1]), params["w8"])
+    if group is not None:
+        y = comm.all_reduce(y, group)
     y = y.reshape(*lead, y.shape[-1]).float() * (s_act * params["w_scale"].float())
     if "bias" in params:
         y = y + params["bias"].float()

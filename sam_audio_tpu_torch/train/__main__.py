@@ -9,9 +9,18 @@ frozen (train/flow_matching.py) -> rolling checkpoints with retention
 (train/checkpoints.py) -> an exported serving snapshot (train/export.py).
 `--task span` trains the native span predictor from the same records;
 `--lora-rank R` trains LoRA adapters only. JAX's flags, plus `--device`
-(default cuda; it raises without a card unless `--device cpu`). One card:
-`--dp`/`--tp` above 1 and the multi-process flags exit with a message
-(parallelism is ROADMAP item 16).
+(default cuda; it raises without a card unless `--device cpu`).
+
+Several ranks: `--dp`/`--tp` build a (dp, tp) mesh (parallel/mesh.py; the
+params, the AdamW state and the EMA split by the Megatron rules, the batch
+over dp). One process per rank, started by torchrun
+(`python -m torch.distributed.run --nproc-per-node 4 -m
+sam_audio_tpu_torch.train ... --dp 2 --tp 2`) or given `--coordinator
+HOST:PORT --num-processes N --process-id I`; the backend follows the
+topology (parallel/mesh.init_distributed). `--batch-size` is the global
+batch: with `--synthetic` every rank draws it and trains on its dp block;
+with `--records` each dp group reads its own record shards into batches of
+batch-size / dp rows.
 
 Smoke run (no data, random init):
   python -m sam_audio_tpu_torch.train --synthetic 8 --random-init --batch-size 2
@@ -98,12 +107,15 @@ def build_argparser() -> argparse.ArgumentParser:
                       help="BCE positive-class weight (active frames are "
                            "usually the minority)")
 
-    par = ap.add_argument_group("parallelism (not ported: ROADMAP item 16)")
-    par.add_argument("--dp", type=int, default=0, help="data-parallel size (<= 1 only)")
-    par.add_argument("--tp", type=int, default=1, help="tensor-parallel size (1 only)")
-    par.add_argument("--coordinator", metavar="HOST:PORT", help="refused")
-    par.add_argument("--num-processes", type=int, default=0, help="refused")
-    par.add_argument("--process-id", type=int, default=-1, help="refused")
+    par = ap.add_argument_group("parallelism")
+    par.add_argument("--dp", type=int, default=0,
+                     help="data-parallel mesh size (0 = ranks // tp)")
+    par.add_argument("--tp", type=int, default=1, help="tensor-parallel mesh size")
+    par.add_argument("--coordinator", metavar="HOST:PORT",
+                     help="multi-process: the rendezvous address (torchrun's "
+                          "environment replaces all three)")
+    par.add_argument("--num-processes", type=int, default=0)
+    par.add_argument("--process-id", type=int, default=-1)
 
     ck = ap.add_argument_group("checkpoints")
     ck.add_argument("--ckpt-dir", help="rolling TrainState checkpoints")
@@ -153,12 +165,18 @@ def _load_model(args):
     return cfg, params, get_text_tokenizer(cfg.text_encoder, allow_fallback=allow_fallback)
 
 
-def _open_records(args):
-    """Returns (dataset, steps_per_epoch_estimate) for --records."""
+def _open_records(args, mesh=None):
+    """Returns (dataset, steps_per_epoch_estimate) for --records. On a mesh
+    each dp group reads its own shards (the tp ranks of a group the same
+    ones)."""
     from sam_audio_tpu_torch.train.records import ShardedRecordDataset
 
-    ds = ShardedRecordDataset(args.records, seed=args.seed)
-    per_epoch = max(len(ds) // (args.batch_size * ds.process_count), 1)
+    kw = {}
+    if mesh is not None:
+        kw = dict(process_index=mesh.axis_index("dp"), process_count=mesh.axis_size("dp"))
+    ds = ShardedRecordDataset(args.records, seed=args.seed, **kw)
+    # --batch-size is per process alone, the global batch on a mesh
+    per_epoch = max(len(ds) // (args.batch_size * (1 if kw else ds.process_count)), 1)
     return ds, per_epoch
 
 
@@ -178,15 +196,16 @@ def _resume(args, mgr, trainer):
         print(f"resumed from step {int(trainer.state.step)}", file=sys.stderr)
 
 
-def _record_batches(args, pipeline):
+def _record_batches(args, pipeline, mesh=None):
     from sam_audio_tpu_torch.train.records import iter_batches
 
-    ds, _ = _open_records(args)
+    ds, _ = _open_records(args, mesh)
+    batch_size = args.batch_size // ds.process_count if mesh is not None else args.batch_size
     for epoch in range(args.epochs):
         # every process the same batch count (see records.batches_per_epoch)
-        yield from iter_batches(ds.epoch(epoch), pipeline, args.batch_size,
+        yield from iter_batches(ds.epoch(epoch), pipeline, batch_size,
                                 prefetch=args.prefetch,
-                                max_batches=ds.batches_per_epoch(epoch, args.batch_size))
+                                max_batches=ds.batches_per_epoch(epoch, batch_size))
 
 
 def _run_span(args, cfg, params, tokenizer, total_steps) -> int:
@@ -263,16 +282,26 @@ def main(argv=None) -> int:
             "(default) or use --lora-rank.")
     if args.lora_out and args.lora_rank <= 0:
         raise SystemExit("--lora-out requires --lora-rank")
-    if (args.tp > 1 or args.dp > 1 or args.coordinator or args.num_processes
-            or args.process_id >= 0):
-        raise SystemExit(
-            "--dp/--tp above 1, --coordinator, --num-processes and --process-id are not "
-            "ported: the port trains on one card (parallelism is ROADMAP item 16)")
 
     import torch
+    import torch.distributed as dist
 
+    from sam_audio_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from sam_audio_tpu_torch.train.flow_matching import (
         DEFAULT_FROZEN_PREFIXES, Trainer, synthetic_batch)
+
+    # multi-process: the flags, or torchrun's environment
+    joined = dist.is_initialized()
+    args.device = str(init_distributed(args.device, args.coordinator, args.num_processes,
+                                       args.process_id))
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = None
+    if args.tp > 1 or args.dp > 1 or world > 1:
+        mesh = make_mesh(dp=args.dp or None, tp=args.tp)
+        print(f"mesh: dp={mesh.shape['dp']} tp={mesh.shape['tp']}", file=sys.stderr)
+        if args.records and args.batch_size % mesh.shape["dp"]:
+            raise SystemExit(f"--batch-size {args.batch_size} must divide over "
+                             f"dp={mesh.shape['dp']}")
 
     cfg, params, tokenizer = _load_model(args)
 
@@ -282,7 +311,7 @@ def main(argv=None) -> int:
     accum = max(int(args.accum_steps), 1)
     total_steps = args.total_steps or args.max_steps
     if not total_steps and args.records:
-        _, per_epoch = _open_records(args)
+        _, per_epoch = _open_records(args, mesh)
         total_steps = max(per_epoch * args.epochs // accum, 1)
     if not total_steps:
         total_steps = max(args.synthetic * args.epochs // accum, 1)
@@ -290,7 +319,16 @@ def main(argv=None) -> int:
     if args.task == "span":
         return _run_span(args, cfg, params, tokenizer, total_steps)
 
-    common = dict(device=args.device, learning_rate=args.lr,
+    pipeline = None
+    if args.records:
+        from sam_audio_tpu_torch.train.data import FlowMatchingDataPipeline
+
+        # featurization runs the frozen towers whole on every rank
+        pipeline = FlowMatchingDataPipeline(cfg, params, tokenizer,
+                                            bucket_seconds=args.bucket_seconds)
+    common = dict(mesh=mesh, local_batches=mesh is not None and not args.synthetic,
+                  device=args.device,
+                  learning_rate=args.lr,
                   weight_decay=args.weight_decay, grad_clip=args.grad_clip,
                   lr_schedule=args.lr_schedule, warmup_steps=args.warmup_steps,
                   total_steps=total_steps, final_lr_ratio=args.final_lr_ratio,
@@ -300,10 +338,8 @@ def main(argv=None) -> int:
 
         trainer = LoRATrainer(cfg, params, rank=args.lora_rank, alpha=args.lora_alpha,
                               targets=args.lora_targets, seed=args.seed + 7, **common)
-        feat_params = trainer.base_params
     else:
         trainer = Trainer(cfg, params, seed=args.seed + 17, **common)
-        feat_params = trainer.state.params
     del params
 
     # state.step counts micro-steps; --save-every is optimizer steps
@@ -314,15 +350,13 @@ def main(argv=None) -> int:
 
     def batches():
         if args.synthetic:
+            # the global batch, the same on every rank (the trainer takes
+            # this rank's dp block)
             gen = torch.Generator(device=trainer.device).manual_seed(args.seed + 19)
             for _ in range(args.epochs * args.synthetic):
                 yield synthetic_batch(cfg, gen, batch_size=args.batch_size)
             return
-        from sam_audio_tpu_torch.train.data import FlowMatchingDataPipeline
-
-        # featurization always uses the frozen base towers
-        yield from _record_batches(args, FlowMatchingDataPipeline(
-            cfg, feat_params, tokenizer, bucket_seconds=args.bucket_seconds))
+        yield from _record_batches(args, pipeline, mesh)
 
     t0 = time.time()
     n = 0
@@ -344,17 +378,23 @@ def main(argv=None) -> int:
         if mgr is not None:
             mgr.save(trainer.state, force=True)
 
-    if args.lora_out:
-        trainer.save_adapters(args.lora_out)
+    writer = not dist.is_initialized() or dist.get_rank() == 0
+    if args.lora_out and writer:
+        trainer.save_adapters(args.lora_out)   # the adapters are whole on every rank
         print(f"wrote LoRA adapters to {args.lora_out}", file=sys.stderr)
     if args.export_dir:
         from sam_audio_tpu_torch.train.export import export_snapshot
 
-        # under LoRA: the merged weights (base + scaled B@A)
-        export_snapshot(cfg, trainer.ema_inference_params(), args.export_dir)
-        print(f"exported serving snapshot to {args.export_dir}", file=sys.stderr)
+        # under LoRA: the merged weights (base + scaled B@A); on a mesh the
+        # whole tree, gathered on every rank and written by rank 0
+        full = trainer.full_params(trainer.ema_inference_params())
+        if writer:
+            export_snapshot(cfg, full, args.export_dir)
+            print(f"exported serving snapshot to {args.export_dir}", file=sys.stderr)
     print(f"done: {n} steps in {time.time() - t0:.1f}s "
           f"(final step {int(trainer.state.step)})", file=sys.stderr)
+    if dist.is_initialized() and not joined:
+        dist.destroy_process_group()
     return 0
 
 

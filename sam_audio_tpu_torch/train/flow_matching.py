@@ -44,6 +44,8 @@ import torch
 
 from sam_audio_tpu_torch.config import SAMAudioConfig
 from sam_audio_tpu_torch.models.sam_audio import DTYPES, forward, resolve_device
+from sam_audio_tpu_torch.parallel import comm
+from sam_audio_tpu_torch.parallel.mesh import dp_block, shard_batch, shard_dims, shard_params
 from sam_audio_tpu_torch.utils import tree_leaves_with_path, tree_map, tree_map_with_path
 
 DEFAULT_FROZEN_PREFIXES = ("audio_codec", "text_encoder")
@@ -52,13 +54,18 @@ DEFAULT_FROZEN_PREFIXES = ("audio_codec", "text_encoder")
 def flow_matching_loss(params, cfg: SAMAudioConfig, batch: Dict[str, Any],
                        generator: Optional[torch.Generator] = None, *,
                        t: Optional[torch.Tensor] = None, x0: Optional[torch.Tensor] = None,
-                       remat="full", dropout_generator: Optional[torch.Generator] = None):
+                       remat="full", dropout_generator: Optional[torch.Generator] = None,
+                       dp_group=None):
     """The masked flow-matching loss (a scalar tensor).
 
     t (B,) and x0 (B, T, 2C) are drawn from `generator` (on the batch's
     device) unless given (a test passes JAX's draws). `remat`: None, "full"
     or "dots" (models/dit.dit_apply). `dropout_generator` turns dropout on
     when `cfg.transformer.dropout > 0`.
+
+    `dp_group`: `batch` is this rank's block of a global batch split over
+    the group; the mask's count is then the global one, so that the sum of
+    the ranks' losses (and of their gradients) is the global batch's.
 
     batch keys: audio_features (B,T,2C), target_latents (B,T,2C) =
     [target || residual], text_features (B,L,text_dim), text_mask (B,L),
@@ -90,7 +97,8 @@ def flow_matching_loss(params, cfg: SAMAudioConfig, batch: Dict[str, Any],
     ).float()
     err = torch.square(v_pred - v_target)
     mask = batch["audio_pad_mask"][:, :, None].float()
-    return torch.sum(err * mask) / torch.clamp(torch.sum(mask) * err.shape[-1], min=1.0)
+    count = comm.all_reduce(torch.sum(mask) * err.shape[-1], dp_group)
+    return torch.sum(err * mask) / torch.clamp(count, min=1.0)
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +170,9 @@ class TrainState:
     `step`: micro-steps taken (JAX's state.step). `ema_params`: the tree
     with the trainable leaves replaced by their EMA, or None. `accum`: the
     running mean of the micro-gradients (accum_steps > 1). `generators`:
-    the step's random sources by name."""
+    the step's random sources by name. `mesh` and `shard_dims` ({path:
+    the dimension split over tp, or None}; parallel/mesh.py): the leaves
+    are this rank's blocks (every rank holds the same generators)."""
 
     params: Any
     optimizer: torch.optim.Optimizer
@@ -170,6 +180,8 @@ class TrainState:
     ema_params: Any = None
     accum: Optional[List[torch.Tensor]] = None
     generators: Dict[str, torch.Generator] = field(default_factory=dict)
+    mesh: Any = None
+    shard_dims: Dict[str, Optional[int]] = field(default_factory=dict)
 
     @property
     def trainable(self) -> List[torch.Tensor]:
@@ -213,6 +225,37 @@ def new_train_state(params, trainable_filter, *, weight_decay: float, ema_decay:
     return TrainState(params, optimizer, 0, ema, accum, generators)
 
 
+class GradSync:
+    """The collectives of a step on a (dp, tp) mesh: the micro-gradients are
+    summed over dp (each rank's loss is its share of the global mean, see
+    flow_matching_loss), the leaves flagged in `tp_sum` are summed over tp
+    (LoRA's whole adapters of split leaves, train/lora.py), and the global
+    norm sums the squares of split leaves over tp and counts whole leaves
+    once."""
+
+    def __init__(self, mesh, split: List[bool], tp_sum: Optional[List[bool]] = None):
+        self.dp = mesh.group("dp")
+        self.tp = mesh.group("tp")
+        self.split = split
+        self.tp_sum = tp_sum or [False] * len(split)
+
+    def grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The summed gradients, replacing `grads`' items one at a time (the
+        list holds the only references: one extra leaf at a time)."""
+        for i, tp_sum in enumerate(self.tp_sum):
+            grads[i] = comm.all_reduce(grads[i], self.dp)
+            if tp_sum:
+                grads[i] = comm.all_reduce(grads[i], self.tp)
+        return grads
+
+    def norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        sq = [torch.sum(torch.square(g.float())) for g in grads]
+        zero = torch.zeros((), device=grads[0].device)
+        split = sum((x for x, s in zip(sq, self.split) if s), zero)
+        whole = sum((x for x, s in zip(sq, self.split) if not s), zero)
+        return torch.sqrt(whole + comm.all_reduce(split, self.tp))
+
+
 def _ema_leaves(state: TrainState) -> List[torch.Tensor]:
     return [e for (_, e), (_, p) in zip(tree_leaves_with_path(state.ema_params),
                                         tree_leaves_with_path(state.params))
@@ -220,23 +263,30 @@ def _ema_leaves(state: TrainState) -> List[torch.Tensor]:
 
 
 def apply_step(state: TrainState, loss_fn: Callable[[], tuple], *, grad_clip: float,
-               lr_schedule, accum_steps: int = 1, ema_decay: float = 0.0) -> Dict[str, Any]:
+               lr_schedule, accum_steps: int = 1, ema_decay: float = 0.0,
+               sync: Optional[GradSync] = None) -> Dict[str, Any]:
     """One micro-step: `loss_fn()` -> (loss, extra metrics); the gradient of
     the loss for the trainable leaves; then (every `accum_steps` calls, on
     the running mean) clip, AdamW at the schedule's rate, and the EMA.
-    Returns {"loss", "grad_norm", **extra} as tensors (no device sync)."""
+    `sync`: the collectives of a sharded step. Returns {"loss",
+    "grad_norm", **extra} as tensors (no device sync)."""
     leaves = state.trainable
     loss, extra = loss_fn()
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
-    gnorm = global_norm(grads)
+    norm_fn = global_norm
+    if sync is not None:
+        grads = sync.grads(grads)
+        loss = comm.all_reduce(loss.detach(), sync.dp)
+        norm_fn = sync.norm
+    gnorm = norm_fn(grads)
     n = state.step % accum_steps
     if accum_steps > 1:
         for acc, g in zip(state.accum, grads):   # optax.MultiSteps' running mean
             acc.add_((g - acc) / (n + 1))
         grads = state.accum
     if n == accum_steps - 1:
-        norm = gnorm if accum_steps == 1 else global_norm(grads)
+        norm = gnorm if accum_steps == 1 else norm_fn(grads)
         scale = torch.where(norm < grad_clip, torch.ones_like(norm), grad_clip / norm)
         torch._foreach_mul_(grads, scale)
         count = state.step // accum_steps
@@ -269,22 +319,50 @@ def ema_tree(state: TrainState):
     return tree_map_with_path(lambda path, e: e.detach().to(flat[path].dtype), state.ema_params)
 
 
+def draw_noise(state: TrainState, batch, t=None, x0=None, local_batch: bool = False):
+    """(batch, t, x0) of this rank. t and x0 are drawn for the global batch
+    from `state.generators["noise"]` (the same on every rank) unless given,
+    then every rank keeps its dp block of them and of the batch
+    (`local_batch`: `batch` already is that block, parallel/mesh.shard_batch),
+    so that a dp run draws what one card draws for the same batch."""
+    x1 = batch["target_latents"]
+    mesh = state.mesh
+    dp = 1 if mesh is None else mesh.axis_size("dp")
+    n = x1.shape[0] * (dp if local_batch else 1)
+    gen = state.generators.get("noise")
+    if t is None:
+        t = torch.rand((n,), generator=gen, device=x1.device)
+    if x0 is None:
+        x0 = torch.randn((n, *x1.shape[1:]), generator=gen, device=x1.device)
+    if dp == 1:
+        return batch, t, x0
+    rows = dp_block(n, mesh)
+    return shard_batch(batch, mesh, process_local=local_batch), t[rows], x0[rows]
+
+
 def make_train_step(cfg: SAMAudioConfig, *, grad_clip: float = 1.0, lr_schedule=1e-4,
-                    accum_steps: int = 1, ema_decay: float = 0.0, remat="full"):
+                    accum_steps: int = 1, ema_decay: float = 0.0, remat="full",
+                    sync: Optional[GradSync] = None, local_batch: bool = False):
     """Returns train_step(state, batch, t=None, x0=None) -> metrics: the
     flow-matching loss of `state.params` with t and x0 from
-    `state.generators["noise"]` (unless given) and dropout seeded from
-    `state.generators["dropout"]`, then `apply_step`."""
+    `state.generators["noise"]` (unless given; draw_noise) and dropout
+    seeded from `state.generators["dropout"]`, then `apply_step`. On a mesh
+    (`state.mesh`, with `sync`) the step runs inside its tensor-parallel
+    group on this rank's dp block."""
 
     def train_step(state: TrainState, batch, t=None, x0=None):
+        batch, t, x0 = draw_noise(state, batch, t, x0, local_batch)
+        dp_group = None if state.mesh is None else state.mesh.group("dp")
+
         def loss_fn():
-            loss = flow_matching_loss(state.params, cfg, batch, state.generators.get("noise"),
-                                      t=t, x0=x0, remat=remat,
-                                      dropout_generator=state.generators.get("dropout"))
+            loss = flow_matching_loss(state.params, cfg, batch, t=t, x0=x0, remat=remat,
+                                      dropout_generator=state.generators.get("dropout"),
+                                      dp_group=dp_group)
             return loss, {}
 
-        return apply_step(state, loss_fn, grad_clip=grad_clip, lr_schedule=lr_schedule,
-                          accum_steps=accum_steps, ema_decay=ema_decay)
+        with comm.use_tp(None if state.mesh is None else state.mesh.group("tp")):
+            return apply_step(state, loss_fn, grad_clip=grad_clip, lr_schedule=lr_schedule,
+                              accum_steps=accum_steps, ema_decay=ema_decay, sync=sync)
 
     return train_step
 
@@ -296,15 +374,22 @@ def default_generators(device, seed: int) -> Dict[str, torch.Generator]:
 
 
 class Trainer:
-    """Single-card flow-matching trainer (JAX's Trainer without a mesh;
-    parallelism is ROADMAP item 16).
+    """Flow-matching trainer on one card or a (dp, tp) mesh of ranks.
 
     `params`: the full fp32 tree (trainable + frozen towers); the trainer
     keeps its storage (no copy) on `device`. `trainable_filter(path)` freezes the
     leaves where it returns False (default: the codec and the text encoder,
-    whose features the data pipeline computes outside the loss)."""
+    whose features the data pipeline computes outside the loss).
 
-    def __init__(self, cfg: SAMAudioConfig, params, *, device="cuda",
+    `mesh` (parallel.mesh.make_mesh): the params, the AdamW state and the
+    EMA hold this rank's tp blocks (JAX's rules), every rank passes the same
+    global batch to `step` and trains on its dp block (`local_batches`: each
+    dp group passes its own block, as JAX's processes do), the gradients
+    and the loss are the global batch's, and the clip uses the global
+    norm. A dp x tp run takes the single card's steps."""
+
+    def __init__(self, cfg: SAMAudioConfig, params, *, mesh=None, local_batches: bool = False,
+                 device="cuda",
                  learning_rate: float = 1e-4, weight_decay: float = 0.01,
                  grad_clip: float = 1.0, trainable_filter=None,
                  lr_schedule: str = "constant", warmup_steps: int = 0,
@@ -317,24 +402,42 @@ class Trainer:
             def trainable_filter(path: str) -> bool:
                 return not path.startswith(DEFAULT_FROZEN_PREFIXES)
         self._trainable_filter = trainable_filter
+        self.mesh = mesh
         params = tree_map(lambda x: x.detach().to(self.device), params)
+        dims = {} if mesh is None else shard_dims(params, mesh)
+        if mesh is not None:
+            params = shard_params(params, mesh)
         self.state = new_train_state(
             params, trainable_filter, weight_decay=weight_decay, ema_decay=ema_decay,
             accum_steps=accum_steps, generators=default_generators(self.device, seed))
+        self.state.mesh, self.state.shard_dims = mesh, dims
+        sync = None
+        if mesh is not None:
+            sync = GradSync(mesh, [dims[p] is not None
+                                   for p in _trainable_paths(params, trainable_filter)])
         self._step = make_train_step(
             cfg, grad_clip=grad_clip,
             lr_schedule=make_lr_schedule(learning_rate, lr_schedule, warmup_steps,
                                          total_steps, final_lr_ratio),
-            accum_steps=accum_steps, ema_decay=ema_decay, remat=remat)
+            accum_steps=accum_steps, ema_decay=ema_decay, remat=remat, sync=sync,
+            local_batch=local_batches)
 
     def step(self, batch, t=None, x0=None) -> Dict[str, torch.Tensor]:
-        """One micro-step on `batch` (tensors on the trainer's device)."""
+        """One micro-step on `batch` (tensors on the trainer's device; on a
+        mesh the global batch, and t / x0 when given are the global ones)."""
         return self._step(self.state, batch, t=t, x0=x0)
 
     def ema_inference_params(self):
         """Params for evaluation and export: EMA where tracked, live
-        elsewhere, cast back to the live params' dtypes."""
+        elsewhere, cast back to the live params' dtypes (on a mesh, this
+        rank's blocks; full_params joins them)."""
         return ema_tree(self.state)
+
+    def full_params(self, tree=None):
+        """The whole tree (default: the live params) from this rank's blocks,
+        gathered over tp on every rank."""
+        return gather_params(self.state.params if tree is None else tree, self.mesh,
+                             self.state.shard_dims)
 
     def fit(self, batches, *, eval_fn=None, eval_every: int = 0,
             log_every: int = 50, log_fn=print):
@@ -356,6 +459,17 @@ class Trainer:
                 not eval_every or history[-1]["step"] % eval_every != 0):
             history[-1].update(eval_fn(self, int(self.state.step)) or {})
         return history
+
+
+def gather_params(tree, mesh, shard_dims: Dict[str, Optional[int]]):
+    """The whole leaves of a tree of this rank's tp blocks (split along
+    `shard_dims[path]` on `mesh`; parallel/mesh.shard_dims), detached."""
+    if mesh is None:
+        return tree_map(lambda x: x.detach(), tree)
+    group = mesh.group("tp")
+    return tree_map_with_path(
+        lambda path, x: x.detach() if shard_dims.get(path) is None
+        else comm.gather(x.detach(), shard_dims[path], group), tree)
 
 
 def synthetic_batch(cfg: SAMAudioConfig, generator: torch.Generator, batch_size: int = 2,

@@ -27,9 +27,11 @@ import numpy as np
 import torch
 
 from sam_audio_tpu_torch.models.sam_audio import resolve_device
+from sam_audio_tpu_torch.parallel import comm
+from sam_audio_tpu_torch.parallel.mesh import shard_dims, shard_params
 from sam_audio_tpu_torch.train.flow_matching import (
-    Trainer, TrainState, apply_step, default_generators, ema_tree, flow_matching_loss,
-    make_lr_schedule, new_train_state)
+    GradSync, Trainer, TrainState, apply_step, default_generators, draw_noise, ema_tree,
+    flow_matching_loss, gather_params, make_lr_schedule, new_train_state)
 from sam_audio_tpu_torch.utils import tree_leaves_with_path, tree_map, tree_map_with_path
 
 # Attention projections in every DiT block (self + cross), the classic LoRA
@@ -87,17 +89,29 @@ def lora_scaling(rank: int, alpha: Optional[float]) -> float:
 
 
 def lora_merge(params, adapters: Dict[str, Dict[str, torch.Tensor]],
-               scaling: float = 1.0):
+               scaling: float = 1.0, shard_dims: Optional[Dict[str, Optional[int]]] = None,
+               group=None):
     """params with every adapted weight replaced by W + scaling * b @ a
-    (broadcast over the stacked layer axes); differentiable in `adapters`."""
+    (broadcast over the stacked layer axes); differentiable in `adapters`.
+
+    `shard_dims` / `group`: `params` holds this rank's tensor-parallel
+    blocks (parallel/mesh.py) and the adapters are whole: a leaf split
+    along `out` takes its block of b's rows, one split along `in` its block
+    of a's columns."""
     hit = set()
+    dims = shard_dims or {}
 
     def fn(key, w):
         ab = adapters.get(key)
         if ab is None:
             return w
         hit.add(key)
-        delta = torch.matmul(ab["b"], ab["a"])  # (..., out, in)
+        a, b = ab["a"], ab["b"]
+        if dims.get(key) == w.ndim - 2:
+            b = comm.block(b, -2, group)
+        elif dims.get(key) == w.ndim - 1:
+            a = comm.block(a, -1, group)
+        delta = torch.matmul(b, a)  # (..., out, in)
         return w + (scaling * delta).to(w.dtype)
 
     merged = tree_map_with_path(fn, params)
@@ -161,10 +175,17 @@ class LoRATrainer:
 
     Same step / fit interface as `flow_matching.Trainer`; the optimizer and
     EMA state cover the adapter factors alone. The base params stay frozen
-    (fp32, no grad) and are merged into every forward."""
+    (fp32, no grad) and are merged into every forward.
+
+    `mesh`: the base holds this rank's tp blocks and the adapters stay whole
+    on every rank, as in JAX; each rank merges the block of b (a leaf split
+    along `out`) or of a (split along `in`) that matches its block, and the
+    gradients of those adapters are summed over tp so that every rank's copy
+    stays the same."""
 
     def __init__(self, cfg, params, *, rank: int, alpha: Optional[float] = None,
-                 targets: Iterable[str] | str = "attention", device="cuda",
+                 targets: Iterable[str] | str = "attention", mesh=None,
+                 local_batches: bool = False, device="cuda",
                  learning_rate: float = 1e-4, weight_decay: float = 0.0,
                  grad_clip: float = 1.0, lr_schedule: str = "constant",
                  warmup_steps: int = 0, total_steps: int = 0,
@@ -178,26 +199,41 @@ class LoRATrainer:
         self.alpha = alpha
         self.targets = tuple(targets)
         self.scaling = lora_scaling(rank, alpha)
-        self.base_params = tree_map(lambda x: x.detach().to(self.device), params)
+        self.mesh = mesh
+        base = tree_map(lambda x: x.detach().to(self.device), params)
         adapters = lora_init(torch.Generator(device=self.device).manual_seed(seed),
-                             self.base_params, rank=rank, targets=self.targets)
+                             base, rank=rank, targets=self.targets)
+        self.base_dims = {} if mesh is None else shard_dims(base, mesh)
+        self.base_params = base if mesh is None else shard_params(base, mesh)
+        self._tp = None if mesh is None else mesh.group("tp")
         self.state: TrainState = new_train_state(
             adapters, lambda path: True, weight_decay=weight_decay, ema_decay=ema_decay,
             accum_steps=accum_steps, generators=default_generators(self.device, seed + 1))
+        self.state.mesh = mesh
+        sync = None
+        if mesh is not None:
+            split = [self.base_dims[key] is not None
+                     for key in sorted(adapters) for _ in ("a", "b")]
+            sync = GradSync(mesh, [False] * len(split), tp_sum=split)
         lr = make_lr_schedule(learning_rate, lr_schedule, warmup_steps, total_steps,
                               final_lr_ratio)
         scaling = self.scaling
 
         def train_step(state: TrainState, batch, t=None, x0=None):
+            batch, t, x0 = draw_noise(state, batch, t, x0, local_batches)
+            dp_group = None if mesh is None else mesh.group("dp")
+
             def loss_fn():
-                merged = lora_merge(self.base_params, state.params, scaling)
-                loss = flow_matching_loss(merged, cfg, batch, state.generators["noise"],
-                                          t=t, x0=x0, remat=remat,
-                                          dropout_generator=state.generators["dropout"])
+                merged = lora_merge(self.base_params, state.params, scaling,
+                                    self.base_dims, self._tp)
+                loss = flow_matching_loss(merged, cfg, batch, t=t, x0=x0, remat=remat,
+                                          dropout_generator=state.generators["dropout"],
+                                          dp_group=dp_group)
                 return loss, {}
 
-            return apply_step(state, loss_fn, grad_clip=grad_clip, lr_schedule=lr,
-                              accum_steps=accum_steps, ema_decay=ema_decay)
+            with comm.use_tp(self._tp):
+                return apply_step(state, loss_fn, grad_clip=grad_clip, lr_schedule=lr,
+                                  accum_steps=accum_steps, ema_decay=ema_decay, sync=sync)
 
         self._step = train_step
 
@@ -214,8 +250,15 @@ class LoRATrainer:
     @torch.no_grad()
     def ema_inference_params(self):
         """Merged params for evaluation and serving (EMA adapters if
-        tracked)."""
-        return lora_merge(self.base_params, self.ema_adapters(), self.scaling)
+        tracked); on a mesh, this rank's blocks (full_params joins them)."""
+        return lora_merge(self.base_params, self.ema_adapters(), self.scaling,
+                          self.base_dims, self._tp)
+
+    def full_params(self, tree=None):
+        """The whole tree (default: the base) from this rank's blocks,
+        gathered over tp on every rank."""
+        return gather_params(self.base_params if tree is None else tree, self.mesh,
+                             self.base_dims)
 
     def save_adapters(self, path: str) -> None:
         save_lora(path, self.ema_adapters(), rank=self.rank, alpha=self.alpha,

@@ -670,6 +670,77 @@ def test_cuda_small_trainer_like_the_cpu(cuda):
                                    msg=path)
 
 
+def _dp2_rank(rank, port, out_dir):
+    """One of two ranks on the card(s): dp2 separate of a small fp32 model
+    (kernel 1's shape: two 128-wide heads) and the unsharded one."""
+    import numpy as np
+
+    import torch.distributed as dist
+
+    from sam_audio_tpu_torch import SAMAudio, SAMAudioProcessor
+    from sam_audio_tpu_torch.config import (
+        DACVAEConfig, SAMAudioConfig, T5EncoderConfig, TransformerConfig)
+    from sam_audio_tpu_torch.parallel.mesh import init_distributed, make_mesh
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+
+    device = init_distributed("cuda", f"127.0.0.1:{port}", 2, rank)
+    torch.backends.cuda.matmul.allow_tf32 = False   # as the `cuda` fixture sets
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        # test_cuda_small_model_streams_like_the_cpu's model: kernel 3's widths
+        cfg = SAMAudioConfig(
+            in_channels=96,
+            audio_codec=DACVAEConfig(encoder_dim=32, encoder_rates=(2, 4), latent_dim=64,
+                                     decoder_dim=128, decoder_rates=(4, 2), codebook_dim=16,
+                                     sample_rate=8000),
+            text_encoder=T5EncoderConfig(dim=64, num_layers=2, num_heads=4, head_dim=16,
+                                         d_ff=128, vocab_size=512),
+            transformer=TransformerConfig(dim=256, n_heads=2, n_layers=2, dropout=0.0,
+                                          context_dim=256, max_positions=2048,
+                                          frequency_embedding_dim=64, out_channels=32),
+            span_predictor=None, compute_dtype="float32")
+        tok = ByteFallbackTokenizer(cfg.text_encoder.vocab_size)
+        proc = SAMAudioProcessor(8, 8000)
+        rng = np.random.RandomState(0)
+        batch = proc(descriptions=["a dog", "rain"],
+                     audios=[rng.randn(1, 1600).astype(np.float32) * 0.2,
+                             rng.randn(1, 1200).astype(np.float32) * 0.2])
+        noise = rng.randn(2, batch.anchor_alignment.shape[-1], 32).astype(np.float32)
+        ref = SAMAudio.init_random(cfg, seed=0, device=device, tokenizer=tok).separate(
+            batch, noise=noise)
+        model = SAMAudio.init_random(cfg, seed=0, device=device, tokenizer=tok)
+        model.shard(make_mesh(dp=2, tp=1))
+        n = fused_glue_attention.launches
+        got = model.separate(batch, noise=noise)
+        np.savez(f"{out_dir}/rank{rank}.npz", launches=fused_glue_attention.launches - n,
+                 backend=dist.get_backend(), **{f"got{i}": x for i, x in enumerate(got.target)},
+                 **{f"ref{i}": x for i, x in enumerate(ref.target)})
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_dp2_separate_equals_the_unsharded_one(cuda, tmp_path):
+    """Two ranks on the card (NCCL with two cards, else gloo sharing one,
+    parallel/mesh.init_distributed's rule): a dp2 separate of a small fp32
+    model, one row a rank, within 1e-4 of the unsharded separate on each
+    rank, and kernel 1 launched on both (2 layers x 32 evaluations)."""
+    import socket
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    mp.spawn(_dp2_rank, args=(port, str(tmp_path)), nprocs=2, join=True)
+    for rank in range(2):
+        z = np.load(tmp_path / f"rank{rank}.npz")
+        assert int(z["launches"]) == 2 * 32
+        for i in range(2):
+            np.testing.assert_allclose(z[f"got{i}"], z[f"ref{i}"], rtol=1e-4, atol=1e-4)
+
+
 def test_cuda_trainer_is_refused_without_a_gpu(monkeypatch):
     """With no GPU, a trainer asked for the card raises (no silent CPU
     path). Runs anywhere: the missing GPU is simulated."""

@@ -331,8 +331,18 @@ def test_cli_lora_and_span_tasks(tmp_path):
     assert predictor.cfg.hidden == 32 and predictor.cfg.audio_dim == 4
 
 
-@pytest.mark.parametrize("flag", [["--tp", "2"], ["--dp", "2"], ["--coordinator", "h:1"],
-                                  ["--num-processes", "2"], ["--process-id", "0"]])
-def test_cli_refuses_parallelism(flag):
-    with pytest.raises(SystemExit, match="ROADMAP item 16"):
+@pytest.mark.parametrize("flag,error,match", [
+    (["--tp", "2"], ValueError, "impossible with 1 device"),
+    (["--dp", "2"], AssertionError, "needs 2 devices, have 1"),
+    (["--dp", "2", "--tp", "2"], AssertionError, "needs 4 devices, have 1"),
+    (["--coordinator", "h:1"], ValueError, "needs --num-processes and --process-id"),
+    (["--coordinator", "h:1", "--num-processes", "2"], ValueError,
+     "needs --num-processes and --process-id"),
+])
+def test_cli_refuses_parallelism(flag, error, match):
+    """One process: a mesh larger than the world is refused with JAX's
+    make_mesh errors, and --coordinator without the process flags before
+    any connection is tried (tests/test_torch_parallel_train.py runs the
+    command line on a dp2 x tp2 world)."""
+    with pytest.raises(error, match=match):
         cli.main(["--synthetic", "1", "--random-init", "--device", "cpu", *flag])
