@@ -155,8 +155,21 @@ Phases (any failure exits non-zero):
                spread), int4 under tp2, and sp4 on the 48 s clip (300 frames
                a rank): finite, of the clip's length, correlation >= 0.99
                with the unsharded target (k=1 also against an unsharded run
-               in the rank); (c) two dp2 x tp2 Trainer steps at
-               full width (TRAIN_LAYERS layers). Every rank's launches (kernel
+               in the rank); quantize(8) and quantize(4) after shard(tp=2)
+               bit-identical to quantize-then-shard on every leaf; sp4 over
+               a shard(tp=2) model (its DiT gathered whole) on the 48 s clip
+               against the unsharded target, and the int4 tree's separate;
+               (b') the dp2 x tp2 model served from rank 0: the serve phase's
+               8 concurrent 6-10 s requests through a ContinuousBatcher over
+               parallel.serve.Lockstep while ranks 1-3 follow, each reply
+               >= 0.99 correlated with the unsharded batcher's (same global
+               seed; 2 groups of 4). Sharded serving and sp over tp run at
+               CUT_LAYERS = 4 layers (full width), against unsharded
+               references at that depth; (c) two dp2 x tp2
+               Trainer steps at full width (TRAIN_LAYERS layers), step 1's
+               dropout masks (digests) equal to this rank's blocks of a
+               one-rank step's, run in this process before the world.
+               Every rank's launches (kernel
                1 on H/tp heads and kernel 3 at k=1: 512 / 36, kernel 4 under
                int4), peak memory and wall ms are logged. With fewer than
                four cards, a one-rank NCCL world runs (a) once more and the
@@ -172,6 +185,10 @@ within 1e-4 of the leaf's largest, losses and parameters within 2e-3, every
 layer's wq and q_norm given a gradient on the card, 8 attention launches (2
 steps x 2 layers x forward and recomputation), and remat="dots" against
 "full".
+Phase 4 also runs the port's three examples (python -m
+sam_audio_tpu_torch.examples.{span_prompting,visual_prompting,
+train_flow_matching} --device cuda) in this process at their small widths,
+each counted (kernel 3 in all, kernel 1 in the two prompting ones).
 Phase 4 also attaches a narrow native span predictor to the small model:
 logits card vs CPU (2e-3), the same spans with no frame within 1e-3 of the
 threshold, separate(predict_spans=True) on both; its snapshot with
@@ -2271,6 +2288,41 @@ def eval_phase(cfg, tok, proc, n_layers, nfe, imagebind_pair):
     return rec
 
 
+def examples_phase():
+    """Phase 4's walkthroughs: the port's three examples
+    (sam_audio_tpu_torch/examples) with --device cuda at their small widths,
+    each counted and timed; their files under the git-ignored
+    build/examples/."""
+    import importlib
+    import shutil
+
+    import torch
+
+    out = {}
+    for name, extra in (("span_prompting", ()), ("visual_prompting", ()),
+                        ("train_flow_matching", ("--steps", "3", "--batch-size", "2"))):
+        work = os.path.join(HERE, "build", "examples", name)
+        shutil.rmtree(work, ignore_errors=True)
+        module = importlib.import_module(f"sam_audio_tpu_torch.examples.{name}")
+        reset_counts()
+        t0 = time.perf_counter()
+        module.main(["--device", DEVICE, "--out", work, *extra])
+        torch.cuda.synchronize()
+        out[name] = {"ms": (time.perf_counter() - t0) * 1e3, "launches": read_counts(),
+                     "files": sorted(os.listdir(work))}
+        log(f"[examples] python -m sam_audio_tpu_torch.examples.{name} --device cuda: "
+            f"{out[name]['ms']:.0f} ms, launches {out[name]['launches']}, files "
+            f"{out[name]['files']}")
+        require(out[name]["launches"]["fused_residual_unit"] > 0,
+                f"examples: {name} launched no residual unit")
+    for name in ("span_prompting", "visual_prompting"):   # 128-wide heads: kernel 1
+        require(out[name]["launches"]["fused_glue_attention"] > 0,
+                f"examples: {name} launched no fused attention")
+    require(os.listdir(os.path.join(HERE, "build", "examples", "train_flow_matching", "ckpt"))
+            == ["3"], "examples: train_flow_matching kept no step-3 checkpoint")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Training: phase 4's card-vs-CPU check and phase 17 at full width
 # ---------------------------------------------------------------------------
@@ -2707,11 +2759,147 @@ def spy_scores(ranker, seen):
     ranker.score_on_device = spy
 
 
+# the depth of sharded serving and of sp over tp in this phase: full width,
+# 4 of the 16 layers, so that the script keeps its time
+CUT_LAYERS = 4
+SERVE_SECONDS = (6.0, 10.0) * 4   # the serve phase's 8 concurrent requests
+SERVE_BUCKET_SECONDS = 2.0        # and its batcher's buckets
+SERVE_SEED = 31                   # the global generators' seed for their noise
+
+
+def batcher_requests(model, sr):
+    """The serve phase's 8 concurrent 6-10 s requests through a
+    ContinuousBatcher (max_batch 4, 2 s buckets, 50 ms wait) over `model`: a
+    SAMAudio, or on rank 0 a parallel.serve.Lockstep while the other ranks
+    follow. All 8 are queued before the device thread starts, so that every
+    run plans the same two groups of 4, and the noise comes from the global
+    generators seeded SERVE_SEED. Returns (the targets, each request's ms
+    from the start, the wall ms)."""
+    import numpy as np
+    import torch
+
+    from sam_audio_tpu_torch.server import ContinuousBatcher
+    from sam_audio_tpu_torch.serving import SeparationRequest
+
+    clips = [mixture(int(sec * sr), sr, 20 + i) for i, sec in enumerate(SERVE_SECONDS)]
+    words = ("a dog barking", "rain", "a bell", "speech")
+    batcher = ContinuousBatcher(model, max_batch=4, bucket_seconds=SERVE_BUCKET_SECONDS,
+                                max_wait_ms=50.0, max_seconds=10.0, autostart=False)
+    torch.manual_seed(SERVE_SEED)
+    done = {}
+    t0 = time.perf_counter()
+    futs = [batcher.submit(SeparationRequest(words[i % 4], clip[None]))
+            for i, clip in enumerate(clips)]
+    for i, fut in enumerate(futs):
+        fut.add_done_callback(lambda _, i=i: done.__setitem__(i, time.perf_counter()))
+    batcher.start()
+    try:
+        replies = [fut.result(timeout=SERVE_TIMEOUT) for fut in futs]
+    finally:
+        batcher.shutdown(timeout=SERVE_TIMEOUT)
+    wall = (time.perf_counter() - t0) * 1e3
+    for reply, clip in zip(replies, clips):
+        require(reply.target.shape == clip.shape and bool(np.isfinite(reply.target).all()),
+                f"parallel serve: a reply of {reply.target.shape}, the request {clip.shape}")
+    return ([r.target for r in replies], [(done[i] - t0) * 1e3 for i in range(len(futs))],
+            wall)
+
+
+def mask_digest(keep) -> str:
+    import hashlib
+
+    return hashlib.sha1(keep.contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def record_dropout_masks(masks):
+    """Patch ops/nn.dropout_keep to append (its keep mask, full_last) to
+    `masks`. Returns the original, to put back."""
+    from sam_audio_tpu_torch.ops import nn as N
+
+    draw = N.dropout_keep
+
+    def recorded(shape, rate, generator, device, full_last=0):
+        keep = draw(shape, rate, generator, device, full_last)
+        masks.append((keep, full_last))
+        return keep
+
+    N.dropout_keep = recorded
+    return draw
+
+
+def layers_cfg(n_layers):
+    """The default SAMAudioConfig (full width) at `n_layers` DiT layers."""
+    import dataclasses
+
+    from sam_audio_tpu_torch import SAMAudioConfig
+
+    cfg = SAMAudioConfig()
+    return dataclasses.replace(cfg, transformer=dataclasses.replace(
+        cfg.transformer, n_layers=n_layers))
+
+
+def train_cfg():
+    """Phase 18's training config: TRAIN_LAYERS layers."""
+    return layers_cfg(TRAIN_LAYERS)
+
+
+def parallel_trainer(cfg, device, mesh=None):
+    """Phase 18's trainer (seed 0: the dropout generator too) and its first
+    batch (4 x 10 s of synthetic features)."""
+    import torch
+
+    from sam_audio_tpu_torch.models.init import sam_audio_init
+    from sam_audio_tpu_torch.train.flow_matching import Trainer, synthetic_batch
+
+    trainer = Trainer(cfg, sam_audio_init(cfg, torch.Generator(device=device).manual_seed(0),
+                                          device),
+                      mesh=mesh, device=device, learning_rate=1e-4, warmup_steps=1,
+                      total_steps=2, lr_schedule="cosine", ema_decay=0.999)
+    gen = torch.Generator(device=device).manual_seed(9)
+    return trainer, gen, synthetic_batch(cfg, gen, batch_size=4, t_frames=250, text_len=16)
+
+
+def dropout_reference():
+    """One one-rank training step of phase 18's trainer at full width
+    (dropout 0.1, remat "full"), every dropout site's mask recorded: for
+    each site and each (dp, tp) coordinate of the dp2 x tp2 mesh, the digest
+    of the block that rank must draw (its 2 of the 4 rows, and its half of
+    the FFN's hidden units where the site is column-parallel)."""
+    import torch
+
+    from sam_audio_tpu_torch.ops import nn as N
+
+    trainer, _, batch = parallel_trainer(train_cfg(), DEVICE)
+    masks = []
+    draw = record_dropout_masks(masks)
+    try:
+        trainer.step(batch)
+    finally:
+        N.dropout_keep = draw
+    torch.cuda.synchronize()
+    digests = []
+    for keep, full_last in masks:
+        site = {}
+        for d in range(2):
+            for t in range(2):
+                block = keep[2 * d: 2 * d + 2]
+                if full_last:
+                    half = block.shape[-1] // 2
+                    block = block[..., t * half: (t + 1) * half]
+                site[f"{d},{t}"] = mask_digest(block)
+        digests.append(site)
+    del trainer, masks
+    torch.cuda.empty_cache()
+    return digests
+
+
 def parallel_references(cfg, tok, proc, n_layers, nfe):
     """The unsharded runs that the world is held against, in this process on
     the card: main's model (seed 0, bf16) on the 10 s clip at k=1 and at k=8
     with phase 7's CLAP ranker, the 48 s clip (kernel 2), and after
-    quantize(4) the 10 s clip at k=1. Saved with their noise to
+    quantize(4) the 10 s clip at k=1; at CUT_LAYERS layers, the 48 s clip
+    and the serve phase's 8 requests through a ContinuousBatcher; the
+    dropout masks of a one-rank training step. Saved with their noise to
     build/parallel/refs.pt."""
     import torch
 
@@ -2731,10 +2919,10 @@ def parallel_references(cfg, tok, proc, n_layers, nfe):
     model = SAMAudio.init_random(cfg, seed=0, device=DEVICE, tokenizer=tok)
     refs, launches = {"noise": noise}, {}
 
-    def run(name, batch, expect, **kw):
+    def run(name, batch, expect, m=None, **kw):
         reset_counts()
         t0 = time.perf_counter()
-        res = model.separate(batch, noise=noise[name.split("_")[0]].to(DEVICE), **kw)
+        res = (m or model).separate(batch, noise=noise[name.split("_")[0]].to(DEVICE), **kw)
         torch.cuda.synchronize()
         launches[name] = read_counts()
         for kernel, n in expect.items():
@@ -2761,12 +2949,29 @@ def parallel_references(cfg, tok, proc, n_layers, nfe):
     model.text_ranker = None
     refs["sp"] = run("sp", batch48, {"flash_attention": n_layers * nfe,
                                      "fused_residual_unit": 36})
+    cut = SAMAudio.init_random(layers_cfg(CUT_LAYERS), seed=0, device=DEVICE, tokenizer=tok)
+    log(f"  sharded serving and sp over tp at {CUT_LAYERS} of {n_layers} layers "
+        "(full width):")
+    refs["sp_cut"] = run("sp_cut", batch48, {"flash_attention": CUT_LAYERS * nfe,
+                                             "fused_residual_unit": 36}, m=cut)
+    reset_counts()
+    targets, lat, wall = batcher_requests(cut, cfg.audio_codec.sample_rate)
+    torch.cuda.synchronize()
+    refs["serve"] = targets
+    launches["serve"] = read_counts()
+    log(f"  unsharded serve (8 requests, ContinuousBatcher): wall {wall:.1f} ms, request ms "
+        f"{[round(x, 1) for x in lat]}, launches {launches['serve']}")
+    del cut
     model.quantize(4)
     refs["k1_int4"] = run("k1_int4", batch10, {"matmul_int4": sum(
         int4_launches_k1(cfg).values())})
     refs["launches"] = launches
     del model
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    refs["dropout"] = dropout_reference()
+    log(f"  one-rank training step at {TRAIN_LAYERS} layers: {len(refs['dropout'])} dropout "
+        f"masks recorded in {(time.perf_counter() - t0) * 1e3:.0f} ms (trainer built)")
     torch.save(refs, os.path.join(parallel_dir(), "refs.pt"))
     return refs
 
@@ -2934,60 +3139,138 @@ def parallel_full(rank, device, meshes, refs):
     del model
     torch.cuda.empty_cache()
 
+    # quantize() after shard() must give quantize-then-shard's tree, bit for bit
+    from sam_audio_tpu_torch.utils import tree_leaves_with_path
+
+    for bits in (8, 4):
+        t0 = time.perf_counter()
+        want = dict(tree_leaves_with_path(SAMAudio.init_random(
+            cfg, seed=0, device=device, tokenizer=tok).quantize(bits).shard(
+                meshes["dp2tp2"]).params))
+        model = SAMAudio.init_random(cfg, seed=0, device=device, tokenizer=tok).shard(
+            meshes["dp2tp2"]).quantize(bits)
+        got = dict(tree_leaves_with_path(model.params))
+        differ = sorted(set(want) ^ set(got)) + [
+            p for p in want if p in got and (got[p].dtype != want[p].dtype
+                                             or got[p].shape != want[p].shape
+                                             or not torch.equal(got[p], want[p]))]
+        out[f"quantize_after_shard_{bits}"] = {
+            "leaves": len(want), "differing": differ,
+            "quantized_leaves": sum(p.endswith(("/w4", "/w8")) for p in want),
+            "ms": (time.perf_counter() - t0) * 1e3}
+        require(not differ, f"parallel quantize({bits}) after shard on rank {rank}: leaves "
+                f"{differ[:5]} differ from quantize-then-shard's")
+        del want, got
+        if bits == 4:   # the same tree as k1_int4's: kernel 4 under tp2 again
+            run("k1_int4_after_shard", model, batch10, MIXTURE_SECONDS, refs["k1_int4"])
+        del model
+        torch.cuda.empty_cache()
+
     model = SAMAudio.init_random(cfg, seed=0, device=device, tokenizer=tok)
     model.sp_mesh = meshes["sp"]
     run("sp", model, batch48, SP_SECONDS, refs["sp"])
     del model
     torch.cuda.empty_cache()
+
+    # the ring trunk over a tp-sharded model (its DiT leaves gathered whole),
+    # at CUT_LAYERS layers
+    model = SAMAudio.init_random(layers_cfg(CUT_LAYERS), seed=0, device=device,
+                                 tokenizer=tok).shard(meshes["dp2tp2"])
+    model.sp_mesh = meshes["sp"]
+    run("sp_tp", model, batch48, SP_SECONDS, refs["sp_cut"])
+    del model
+    torch.cuda.empty_cache()
     return out
 
 
-def parallel_train(rank, device, meshes):
+def parallel_serve(rank, device, meshes, refs):
+    """(b') main's model (CUT_LAYERS layers) at dp2 x tp2 served from rank 0:
+    a ContinuousBatcher over parallel.serve.Lockstep takes the serve phase's
+    8 requests while ranks 1-3 follow; each reply is finite, of its clip's
+    length, and correlates >= CORR_BOUND with the unsharded batcher's."""
+    import torch
+
+    from sam_audio_tpu_torch import SAMAudio
+    from sam_audio_tpu_torch.parallel.serve import serve
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+
+    cfg = layers_cfg(CUT_LAYERS)
+    model = SAMAudio.init_random(cfg, seed=0, device=device, tokenizer=ByteFallbackTokenizer(
+        cfg.text_encoder.vocab_size)).shard(meshes["dp2tp2"])
+    torch.cuda.synchronize(device)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = serve(model, lambda lockstep: batcher_requests(lockstep, cfg.audio_codec.sample_rate))
+    torch.cuda.synchronize(device)
+    out = {"ms": (time.perf_counter() - t0) * 1e3, "launches": read_counts()}
+    if rank == 0:
+        targets, out["request_ms"], out["wall_ms"] = got
+        out["corr"] = [corr(a, b) for a, b in zip(targets, refs["serve"])]
+        require(min(out["corr"]) >= CORR_BOUND, f"parallel serve: correlations {out['corr']} "
+                f"with the unsharded replies, bound {CORR_BOUND}")
+    else:
+        out["followed_calls"] = got
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_train(rank, device, meshes, refs_dropout):
     """(c) training at full width, dp2 x tp2, 2 steps of a global batch of 4
     x 10 s (synthetic features). Each rank holds a tp half of the DiT's
     fp32 masters, gradients, AdamW moments and EMA (about 0.58B parameters:
     14 GB with the moments' temporaries) plus remat="full" activations of its
-    2 rows; TRAIN_LAYERS sets the depth."""
-    import dataclasses
+    2 rows; TRAIN_LAYERS sets the depth. Step 1's dropout masks must be
+    this rank's blocks of the one-rank step's (`refs_dropout`: digests from
+    dropout_reference)."""
     import math
 
     import torch
 
-    from sam_audio_tpu_torch import SAMAudioConfig
-    from sam_audio_tpu_torch.models.init import sam_audio_init
-    from sam_audio_tpu_torch.train.flow_matching import Trainer, synthetic_batch
+    from sam_audio_tpu_torch.ops import nn as N
+    from sam_audio_tpu_torch.train.flow_matching import synthetic_batch
     from sam_audio_tpu_torch.utils import tree_leaves_with_path
 
-    cfg = SAMAudioConfig()
-    cfg = dataclasses.replace(cfg, transformer=dataclasses.replace(
-        cfg.transformer, n_layers=TRAIN_LAYERS))
+    cfg = train_cfg()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
-    trainer = Trainer(cfg, sam_audio_init(cfg, torch.Generator(device=device).manual_seed(0),
-                                          device),
-                      mesh=meshes["dp2tp2"], device=device, learning_rate=1e-4,
-                      warmup_steps=1, total_steps=2, lr_schedule="cosine", ema_decay=0.999)
+    trainer, gen, batch = parallel_trainer(cfg, device, meshes["dp2tp2"])
     local = sum(x.numel() for _, x in tree_leaves_with_path(trainer.state.params)
                 if x.requires_grad)
     wq = trainer.state.params["transformer"]["layers"]["attention"]["wq"]["weight"]
     before = wq.detach().clone()
-    gen = torch.Generator(device=device).manual_seed(9)
-    steps = []
-    for _ in range(2):
-        batch = synthetic_batch(cfg, gen, batch_size=4, t_frames=250, text_len=16)
+    steps, masks = [], []
+    for i in range(2):
+        if i:
+            batch = synthetic_batch(cfg, gen, batch_size=4, t_frames=250, text_len=16)
         reset_counts()
         torch.cuda.synchronize(device)
+        draw = record_dropout_masks(masks) if i == 0 else None
         t0 = time.perf_counter()
-        m = trainer.step(batch)
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
-        torch.cuda.synchronize(device)
+        try:
+            m = trainer.step(batch)
+            loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize(device)
+        finally:
+            if draw is not None:
+                N.dropout_keep = draw
         steps.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": loss,
                       "grad_norm": gnorm, "launches": read_counts()})
         require(math.isfinite(loss) and math.isfinite(gnorm),
                 f"parallel train on rank {rank}: loss {loss}, grad norm {gnorm}")
     require(bool((wq.detach() != before).any()), f"parallel train on rank {rank}: wq did not move")
+    # every dropout site's mask of step 1 is this rank's block of the one-rank step's
+    coord = f"{meshes['dp2tp2'].axis_index('dp')},{meshes['dp2tp2'].axis_index('tp')}"
+    want = [site[coord] for site in refs_dropout]
+    got = [mask_digest(keep) for keep, _ in masks]
+    require(got == want, f"parallel train on rank {rank}: {sum(a != b for a, b in zip(got, want))}"
+            f" of {len(want)} dropout masks differ from the one-rank step's blocks ({len(got)} "
+            "drawn)")
     out = {"layers": TRAIN_LAYERS, "local_trainable_params": local, "steps": steps,
-           "peak_bytes": torch.cuda.max_memory_allocated(device)}
+           "peak_bytes": torch.cuda.max_memory_allocated(device),
+           "dropout_masks_equal": len(got),
+           "dropout_split_sites": sum(bool(full_last) for _, full_last in masks)}
+    del masks
     del trainer
     torch.cuda.empty_cache()
     return out
@@ -3069,7 +3352,8 @@ def parallel_rank(rank, world, port, full, device_type):
         if full:
             refs = torch.load(os.path.join(parallel_dir(), "refs.pt"), weights_only=False)
             res["full"] = parallel_full(rank, device, meshes, refs)
-            res["train"] = parallel_train(rank, device, meshes)
+            res["serve"] = parallel_serve(rank, device, meshes, refs)
+            res["train"] = parallel_train(rank, device, meshes, refs["dropout"])
     finally:
         dist.destroy_process_group()
     with open(os.path.join(parallel_dir(), f"world{world}_rank{rank}.pkl"), "wb") as f:
@@ -3168,27 +3452,52 @@ def parallel_phase(cfg, tok, proc, n_layers, nfe, smi):
             f"{k1['corr_in_rank_vs_script']:.5f}, max abs {k1['max_abs_in_rank_vs_script']:.3e};"
             f" sharded vs this rank's unsharded: corr {k1['corr_in_rank_unsharded']:.5f}")
         for name, x in r["full"].items():
+            if name.startswith("quantize_after_shard"):
+                log(f"    full {name}: {x['leaves']} leaves ({x['quantized_leaves']} quantized) "
+                    f"equal to quantize-then-shard's in {x['ms']:.0f} ms")
+                continue
             log(f"    full {name}: ms {x['ms']:.1f}, corr {x['corr']:.5f} (bound "
                 f"{x['corr_bound']}), peak {x['peak_bytes'] / 2**30:.2f} GiB, launches "
                 f"{x['launches']}" + (f", winner {x['winner']} vs {x['ref_winner']}, margin "
                                       f"{x['ref_margin']:.3e}, spread {x['score_spread']:.3e}"
                                       if name == "k8" else ""))
+        sv = r["serve"]
+        log(f"    serve ({CUT_LAYERS} layers, dp2 x tp2, 8 requests, "
+            f"{'Lockstep on rank 0' if r['rank'] == 0 else 'follow'}"
+            f"): {sv['ms']:.1f} ms, launches {sv['launches']}" + (
+                f", wall {sv['wall_ms']:.1f} ms, request ms "
+                f"{[round(x, 1) for x in sv['request_ms']]}, corr "
+                f"{[round(c, 5) for c in sv['corr']]}" if r["rank"] == 0
+                else f", {sv['followed_calls']} calls followed"))
         tr = r["train"]
         log(f"    train ({tr['layers']} layers, {tr['local_trainable_params']:,} trainable "
             f"parameters on this rank): steps "
             f"{[(round(s['ms'], 1), round(s['loss'], 5)) for s in tr['steps']]}, peak "
-            f"{tr['peak_bytes'] / 2**30:.2f} GiB, launches {tr['steps'][-1]['launches']}")
+            f"{tr['peak_bytes'] / 2**30:.2f} GiB, launches {tr['steps'][-1]['launches']}; "
+            f"{tr['dropout_masks_equal']} dropout masks equal to the one-rank step's blocks "
+            f"({tr['dropout_split_sites']} column-parallel)")
         record["ranks"].append(r)
         full = r["full"]
         require(full["k1"]["launches"]["fused_glue_attention"] == n_layers * nfe
                 and full["k1"]["launches"]["fused_residual_unit"] == 36,
                 f"parallel: rank {r['rank']} dp2tp2 k=1 launches {full['k1']['launches']}")
-        require(full["k1_int4"]["launches"]["matmul_int4"] > 0,
-                f"parallel: rank {r['rank']} int4 tp2 launched no int4 product")
+        for name in ("k1_int4", "k1_int4_after_shard"):
+            require(full[name]["launches"]["matmul_int4"] == refs["launches"]["k1_int4"][
+                "matmul_int4"], f"parallel: rank {r['rank']} {name} launches "
+                f"{full[name]['launches']}")
         require(full["sp"]["launches"]["fused_residual_unit"] > 0,
                 f"parallel: rank {r['rank']} sp4 launched no residual unit")
+        require(full["sp_tp"]["launches"]["fused_residual_unit"] == 36
+                and full["sp_tp"]["launches"]["flash_attention"] == 0,
+                f"parallel: rank {r['rank']} sp4 over tp2 launches {full['sp_tp']['launches']}")
+        require(r["serve"]["launches"]["fused_glue_attention"] == 2 * CUT_LAYERS * nfe
+                and r["serve"]["launches"]["fused_residual_unit"] == 2 * 36,
+                f"parallel: rank {r['rank']} served 2 groups with launches "
+                f"{r['serve']['launches']}")
         require(r["train"]["steps"][-1]["launches"]["fused_glue_attention"] > 0,
                 f"parallel: rank {r['rank']} training launched no kernel 1")
+    calls = {r["serve"].get("followed_calls") for r in ranks[1:]}
+    require(calls == {2}, f"parallel serve: the followers ran {calls} calls, rank 0 sent 2")
     losses = {tuple(round(s["loss"], 6) for s in r["train"]["steps"]) for r in ranks}
     require(len(losses) == 1, f"parallel: the ranks report different losses {losses}")
     if cards < PARALLEL_WORLD:
@@ -3285,6 +3594,7 @@ def main() -> int:
     # 4. small model: card vs CPU, exact and int4; two Trainer steps
     small_agreement()
     small_train = small_training()
+    examples = examples_phase()
 
     # 5. main path, full width
     log("[main] default SAMAudioConfig, random weights (seed 0), bf16")
@@ -3424,7 +3734,8 @@ def main() -> int:
                "rerank_k8_10s": rerank, "stream_60s": stream, "judge_k8_10s": judge,
                "int4_10s": int4, "int8_10s": int8, "visual_10s": visual,
                "visual_stream_30s": visual_stream, "spans_10s": spans, "serve": serve,
-               "eval": evaluation, "small_train": small_train, "train": train,
+               "eval": evaluation, "small_train": small_train, "examples": examples,
+               "train": train,
                "parallel": parallel, "power": smi}
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
     with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:

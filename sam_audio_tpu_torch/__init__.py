@@ -16,9 +16,39 @@ first use (ops/_build.py). Entry points run on the card by default:
 The package imports neither jax nor the JAX package.
 """
 
-from sam_audio_tpu_torch.config import SAMAudioConfig, tiny_test_config
+from sam_audio_tpu_torch.config import (
+    DACVAEConfig,
+    SAMAudioConfig,
+    SAMAudioJudgeConfig,
+    T5EncoderConfig,
+    TransformerConfig,
+    parse_ranker_config,
+    tiny_test_config,
+)
 from sam_audio_tpu_torch.models.sam_audio import SAMAudio, SeparationResult
-from sam_audio_tpu_torch.processor import Batch, SAMAudioProcessor
+from sam_audio_tpu_torch.processor import Batch, SAMAudioJudgeProcessor, SAMAudioProcessor
 
 __all__ = ["SAMAudio", "SAMAudioConfig", "SAMAudioProcessor", "Batch",
-           "SeparationResult", "tiny_test_config"]
+           "SeparationResult", "tiny_test_config", "DACVAEConfig", "SAMAudioJudgeConfig",
+           "T5EncoderConfig", "TransformerConfig", "parse_ranker_config",
+           "SAMAudioJudgeProcessor", "SAMAudioJudgeModel", "SeparationPipeline",
+           "SeparationRequest", "SeparationResponse", "ContinuousBatcher",
+           "SeparationServer"]
+
+
+def __getattr__(name):
+    # lazy, as in the JAX package: the judge pulls in its tower stack, and the
+    # serving entry points their threads and HTTP modules
+    if name == "SAMAudioJudgeModel":
+        from sam_audio_tpu_torch.models.judge import SAMAudioJudgeModel
+
+        return SAMAudioJudgeModel
+    if name in ("SeparationPipeline", "SeparationRequest", "SeparationResponse"):
+        from sam_audio_tpu_torch import serving
+
+        return getattr(serving, name)
+    if name in ("ContinuousBatcher", "SeparationServer"):
+        from sam_audio_tpu_torch import server
+
+        return getattr(server, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

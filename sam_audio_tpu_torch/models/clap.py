@@ -167,6 +167,22 @@ class ClapModel:
         gen = torch.Generator(device=dev).manual_seed(seed)
         return cls(cfg, clap_init(cfg, gen, dev), tokenizer, allow_fallback_tokenizer=True)
 
+    @classmethod
+    def from_torch_checkpoint(cls, path: str, cfg: ClapConfig = ClapConfig(), tokenizer=None,
+                              device="cuda"):
+        """A laion_clap .pt checkpoint (e.g. 630k-best.pt: {"state_dict": ...}),
+        converted by convert.convert_clap_state_dict; a key it does not
+        convert raises."""
+        from sam_audio_tpu_torch.checkpoint import params_from_numpy
+        from sam_audio_tpu_torch.convert import convert_clap_state_dict, load_torch_state_dict
+        from sam_audio_tpu_torch.models.sam_audio import resolve_device
+
+        params, unconverted = convert_clap_state_dict(
+            load_torch_state_dict(path, key="state_dict"), cfg)
+        if unconverted:
+            raise ValueError(f"unconverted CLAP keys: {unconverted[:10]}...")
+        return cls(cfg, params_from_numpy(params, resolve_device(device)), tokenizer)
+
     @property
     def tokenizer(self):
         if self._tokenizer is None:

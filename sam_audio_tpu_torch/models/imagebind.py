@@ -401,6 +401,24 @@ class ImageBindHugeModel(_Scorer):
         gen = torch.Generator(device=dev).manual_seed(seed)
         return cls(cfg, imagebind_huge_init(cfg, gen, dev), pipeline)
 
+    @classmethod
+    def from_torch_checkpoint(cls, path: str, cfg: Optional[ImageBindHugeConfig] = None,
+                              device="cuda"):
+        """An imagebind_huge torch checkpoint, converted by
+        convert.convert_imagebind_state_dict (the other modalities are left
+        out); a key of the audio or vision branch it does not convert
+        raises."""
+        from sam_audio_tpu_torch.checkpoint import params_from_numpy
+        from sam_audio_tpu_torch.convert import (
+            convert_imagebind_state_dict, load_torch_state_dict)
+        from sam_audio_tpu_torch.models.sam_audio import resolve_device
+
+        cfg = cfg or ImageBindHugeConfig()
+        params, unconverted, _ = convert_imagebind_state_dict(load_torch_state_dict(path), cfg)
+        if unconverted:
+            raise ValueError(f"unconverted imagebind keys: {unconverted[:10]}")
+        return cls(cfg, params_from_numpy(params, resolve_device(device)))
+
     @torch.inference_mode()
     def embed_videos(self, videos: Sequence[np.ndarray], num_crops: int = 3) -> torch.Tensor:
         clips = np.stack([video_to_frame_clips(np.asarray(v), size=self.cfg.image_size,

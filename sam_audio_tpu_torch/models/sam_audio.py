@@ -128,8 +128,8 @@ def separate_latents(params, audios, text_ids, text_mask, anchor_ids,
     them, models/sam_audio.py:222-237) and the blocks are gathered after
     the ODE; otherwise every rank solves all rows. The codec and T5 run
     whole on every rank. `sp_mesh`: the DiT trunk runs sequence-parallel
-    over its `sp_axis` axis (parallel/sp.py); the velocity is gathered
-    whole for the ODE on every rank."""
+    over its `sp_axis` axis (parallel/sp.py) on whole DiT leaves; the
+    velocity is gathered whole for the ODE on every rank."""
     compute_dtype = DTYPES[cfg.compute_dtype]
     lat = dacvae.encode(params["audio_codec"], audios, cfg.audio_codec,
                         compute_dtype=compute_dtype)          # (B, C, T)
@@ -252,6 +252,7 @@ class SAMAudio:
         self.span_predictor = span_predictor
         # parallel.mesh.Mesh set by shard(): tp-split leaves, rows over dp
         self.mesh = None
+        self._shard_dims: Dict[str, Dict[str, Optional[int]]] = {}
         # a mesh with an "sp" axis: the DiT trunk runs sequence-parallel
         self.sp_mesh = None
         self._warned_visual_host = False
@@ -348,14 +349,25 @@ class SAMAudio:
         Returns self."""
         from sam_audio_tpu_torch.ops.quant import quantize_pe_params, quantize_sam_audio_params
 
-        if self.mesh is not None and self.mesh.axis_size("tp") > 1:
-            raise ValueError(
-                "quantize() before shard(): the per-row scales of a row-parallel "
-                "leaf are taken over the whole row")
-        self.params = quantize_sam_audio_params(self.params, bits)
+        self.params = self._requantized(self.params, "params",
+                                        lambda p: quantize_sam_audio_params(p, bits))
         if bits == 8 and self.vision_encoder is not None:
-            self.vision_encoder.params = quantize_pe_params(self.vision_encoder.params)
+            self.vision_encoder.params = self._requantized(
+                self.vision_encoder.params, "vision", quantize_pe_params)
         return self
+
+    def _requantized(self, tree, name: str, quantize):
+        """`quantize(tree)`; after shard() on the whole leaves, split again:
+        the per-row scales of a row-parallel leaf and the int4 groups that
+        straddle a tp split are those of quantize() before shard(), bit for
+        bit (as JAX quantizes the sharded arrays with global scales)."""
+        from sam_audio_tpu_torch.parallel.mesh import gather_params, shard_dims, shard_params
+
+        if name not in self._shard_dims:   # not sharded (or attached after shard())
+            return quantize(tree)
+        tree = quantize(gather_params(tree, self.mesh, self._shard_dims[name]))
+        self._shard_dims[name] = shard_dims(tree, self.mesh)
+        return shard_params(tree, self.mesh)
 
     def shard(self, mesh=None, tp: int = 1):
         """Split the params over a (dp, tp) mesh of the torch.distributed
@@ -364,23 +376,37 @@ class SAMAudio:
         tower), the rest stays whole; separate() then runs the towers
         tensor-parallel and splits the B*k rows over dp. Every rank calls it
         with the same arguments and gets the same SeparationResult from
-        separate(). `quantize()` comes first. Returns self."""
-        from sam_audio_tpu_torch.parallel.mesh import make_mesh, shard_params
+        separate() (parallel/serve.py drives the other ranks from rank 0).
+        `quantize()` may come before or after. Returns self."""
+        from sam_audio_tpu_torch.parallel.mesh import make_mesh, shard_dims, shard_params
 
         if mesh is None:
             mesh = make_mesh(tp=tp)
+        # the split dimension of every leaf, for quantize() and the sp trunk
+        self._shard_dims = {"params": shard_dims(self.params, mesh)}
         self.params = shard_params(self.params, mesh)
         if self.vision_encoder is not None:
+            self._shard_dims["vision"] = shard_dims(self.vision_encoder.params, mesh)
             self.vision_encoder.params = shard_params(self.vision_encoder.params, mesh)
             self.vision_encoder.mesh = mesh
         self.mesh = mesh
         return self
 
-    def _parallel_kw(self):
-        if self.sp_mesh is not None and self.mesh is not None and self.mesh.size > 1:
-            raise ValueError("sp_mesh and a sharded model (shard()) do not combine: the "
-                             "sequence-parallel trunk takes whole parameters")
-        return dict(mesh=self.mesh, sp_mesh=self.sp_mesh)
+    def _parallel_args(self):
+        """(the params separate_latents runs on, its parallel arguments). With
+        `sp_mesh` every rank solves every row through the ring (no dp split),
+        on a sharded DiT's tp leaves gathered whole, once a separate, as JAX's
+        shard_map gathers them; whole leaves need no tp collective."""
+        if self.sp_mesh is None:
+            return self.params, dict(mesh=self.mesh)
+        params = self.params
+        if self.mesh is not None and self.mesh.axis_size("tp") > 1:
+            from sam_audio_tpu_torch.parallel.mesh import gather_params
+
+            params = dict(params, transformer=gather_params(
+                {"transformer": params["transformer"]}, self.mesh,
+                self._shard_dims["params"])["transformer"])
+        return params, dict(sp_mesh=self.sp_mesh)
 
     @torch.inference_mode()
     def separate(self, batch, noise=None, **kwargs) -> SeparationResult:
@@ -489,8 +515,8 @@ class SAMAudio:
         def as_long(x):
             return torch.as_tensor(np.asarray(x), dtype=torch.long, device=dev)
 
-        par = self._parallel_kw()
-        core_args = (self.params, audios, text_ids, text_mask, as_long(batch.anchor_ids),
+        params, par = self._parallel_args()
+        core_args = (params, audios, text_ids, text_mask, as_long(batch.anchor_ids),
                      as_long(batch.anchor_alignment),
                      torch.as_tensor(np.asarray(batch.audio_pad_mask), dtype=torch.bool,
                                      device=dev))

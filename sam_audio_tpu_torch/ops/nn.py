@@ -145,15 +145,35 @@ def gate(x, g):
     return x * g
 
 
-def dropout(x, rate: float, generator: Optional[torch.Generator] = None):
+def dropout(x, rate: float, generator: Optional[torch.Generator] = None,
+            full_last: int = 0):
     """Inverted dropout; the identity when rate is 0 or there is no generator
     (inference). The keep mask is drawn from `generator` (on x's device), so
-    it cannot reproduce jax.random's bits: only the distribution is JAX's."""
+    it cannot reproduce jax.random's bits: only the distribution is JAX's.
+    `full_last`: the full width of a last dimension that tensor parallelism
+    splits (a column-parallel hidden layer), 0 for a whole one; see
+    `dropout_keep` for the mask on a mesh."""
     if rate <= 0.0 or generator is None:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = dropout_keep(x.shape, rate, generator, x.device, full_last)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                           device=x.device)).to(x.dtype)
+
+
+def dropout_keep(shape, rate: float, generator: torch.Generator, device,
+                 full_last: int = 0) -> torch.Tensor:
+    """The keep mask of a dropout site whose activation has `shape` on this
+    rank. As JAX draws one mask over the global array, the mask is drawn at
+    the global shape, the rows of every rank of the active data-parallel
+    group (comm.use_dp) and the `full_last` units of a split last dimension,
+    and this rank keeps its block: its dp rows and the tensor-parallel block
+    of columns that column_linear keeps. A dp x tp step then drops what one
+    card drops."""
+    dp = comm.dp_group()
+    split = bool(full_last) and shape[-1] != full_last
+    full = (shape[0] * comm.size(dp), *shape[1:-1], full_last if split else shape[-1])
+    keep = comm.block(torch.rand(full, generator=generator, device=device) >= rate, 0, dp)
+    return comm.block(keep, len(full) - 1, comm.tp_group()) if split else keep
 
 
 def get_nonlinearity(kind: str):
@@ -182,7 +202,7 @@ def projection(params, x, non_linearity: str, compute_dtype=None,
         h = F.silu(h1) * column_linear(params["w3"], x, compute_dtype, hidden)
     else:
         h = get_nonlinearity(non_linearity)(h1)
-    h = dropout(h, dropout_rate, generator)
+    h = dropout(h, dropout_rate, generator, hidden)
     return row_linear(params["w2"], h, compute_dtype, hidden)
 
 

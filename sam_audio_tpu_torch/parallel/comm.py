@@ -25,7 +25,9 @@ that share one card, parallel/mesh.init_distributed) the ring shift copies a
 CUDA tensor to host memory, exchanges it, and copies it back.
 
 The active tensor-parallel group (`use_tp`) tells the model code that its
-sharded leaves need collectives (ops/nn.column_linear / row_linear).
+sharded leaves need collectives (ops/nn.column_linear / row_linear); the
+active data-parallel group (`use_dp`) that its rows are one block of a
+global batch (the dropout masks, ops/nn.dropout_keep).
 """
 
 from __future__ import annotations
@@ -36,9 +38,10 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-# A process-wide setting, not a context variable: autograd runs a CUDA
+# Process-wide settings, not context variables: autograd runs a CUDA
 # backward (and a rematerialised layer's forward) on its own threads.
 _TP: Optional[dist.ProcessGroup] = None
+_DP: Optional[dist.ProcessGroup] = None
 
 
 @contextlib.contextmanager
@@ -52,8 +55,25 @@ def use_tp(group: Optional[dist.ProcessGroup]):
         _TP = saved
 
 
+@contextlib.contextmanager
+def use_dp(group: Optional[dist.ProcessGroup]):
+    """Make `group` the data-parallel group of the code run inside: its
+    activations hold this rank's block of the global batch's rows
+    (ops/nn.dropout_keep draws a site's mask over all of them)."""
+    global _DP
+    saved, _DP = _DP, group
+    try:
+        yield
+    finally:
+        _DP = saved
+
+
 def tp_group() -> Optional[dist.ProcessGroup]:
     return _TP
+
+
+def dp_group() -> Optional[dist.ProcessGroup]:
+    return _DP
 
 
 def size(group) -> int:

@@ -38,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from sam_audio_tpu_torch.parallel import comm
 from sam_audio_tpu_torch.utils import tree_map, tree_map_with_path
 
 
@@ -192,6 +193,18 @@ def shard_params(params, mesh: Mesh):
     (the whole tree when tp = 1)."""
     return tree_map_with_path(
         lambda path, x: take_shard(x, shard_dim(path, x.shape, mesh), mesh), params)
+
+
+def gather_params(tree, mesh: Optional[Mesh], dims: Dict[str, Optional[int]]):
+    """The whole leaves of a tree of this rank's tp blocks, split along
+    `dims[path]` (`shard_dims` of the whole tree), detached. Every rank of
+    the tp group takes part."""
+    if mesh is None:
+        return tree_map(lambda x: x.detach(), tree)
+    group = mesh.group("tp")
+    return tree_map_with_path(
+        lambda path, x: x.detach() if dims.get(path) is None
+        else comm.gather(x.detach(), dims[path], group), tree)
 
 
 def dp_block(n: int, mesh: Mesh) -> slice:

@@ -97,6 +97,12 @@ class Batch:
     def _wav_to_feature_idx(self, wav_idx: float) -> int:
         return math.ceil(wav_idx / self.hop_length)
 
+    def to(self, device=None):
+        """The reference's `processor(...).to(device)` (reference
+        processor.py:66-76) returns the batch itself: the arrays stay numpy
+        and `SAMAudio.separate` moves them to the model's device."""
+        return self
+
     def process_anchors(self, anchors: Optional[List[List[Anchor]]]):
         """Spans (seconds) -> anchor_ids (B, A) + per-frame alignment (B, T)
         (reference: sam_audio/processor.py:78-124)."""

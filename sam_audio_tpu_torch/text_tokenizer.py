@@ -91,16 +91,22 @@ class RobertaBPETokenizer:
             r"|\s+(?!\S)|\s+")
 
     @classmethod
-    def from_dir(cls, path: str):
-        with open(os.path.join(path, "vocab.json"), encoding="utf-8") as f:
+    def from_files(cls, vocab_json: str, merges_txt: str):
+        """From a vocab.json and a merges.txt (their `#version` line skipped)."""
+        with open(vocab_json, encoding="utf-8") as f:
             vocab = json.load(f)
         merges = []
-        with open(os.path.join(path, "merges.txt"), encoding="utf-8") as f:
+        with open(merges_txt, encoding="utf-8") as f:
             for line in f:
                 line = line.rstrip("\n")
                 if line and not line.startswith("#version"):
                     merges.append(tuple(line.split(" ")))
         return cls(vocab, merges)
+
+    @classmethod
+    def from_dir(cls, path: str):
+        return cls.from_files(os.path.join(path, "vocab.json"),
+                              os.path.join(path, "merges.txt"))
 
     def _bpe(self, token: str) -> list:
         if token in self._cache:

@@ -36,8 +36,8 @@ import torch
 import torch.distributed as dist
 
 from sam_audio_tpu_torch.parallel import comm
-from sam_audio_tpu_torch.parallel.mesh import take_shard
-from sam_audio_tpu_torch.train.flow_matching import TrainState, gather_params
+from sam_audio_tpu_torch.parallel.mesh import gather_params, take_shard
+from sam_audio_tpu_torch.train.flow_matching import TrainState
 from sam_audio_tpu_torch.utils import tree_leaves_with_path
 
 
@@ -211,3 +211,20 @@ class TrainCheckpointManager:
         for name, g in template.generators.items():
             g.set_state(meta["generators"][name])
         return template
+
+    # -- lifecycle (JAX's manager wraps orbax's asynchronous one) -------------
+
+    def wait_until_finished(self) -> None:
+        """Every step is on disk when save() returns (the writes are
+        synchronous); on a mesh the ranks meet at a barrier."""
+        _barrier()
+
+    def close(self) -> None:
+        """Nothing stays open between calls, so there is nothing to release;
+        safe to call more than once."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()

@@ -45,7 +45,8 @@ import torch
 from sam_audio_tpu_torch.config import SAMAudioConfig
 from sam_audio_tpu_torch.models.sam_audio import DTYPES, forward, resolve_device
 from sam_audio_tpu_torch.parallel import comm
-from sam_audio_tpu_torch.parallel.mesh import dp_block, shard_batch, shard_dims, shard_params
+from sam_audio_tpu_torch.parallel.mesh import (
+    dp_block, gather_params, shard_batch, shard_dims, shard_params)
 from sam_audio_tpu_torch.utils import tree_leaves_with_path, tree_map, tree_map_with_path
 
 DEFAULT_FROZEN_PREFIXES = ("audio_codec", "text_encoder")
@@ -360,7 +361,10 @@ def make_train_step(cfg: SAMAudioConfig, *, grad_clip: float = 1.0, lr_schedule=
                                       dp_group=dp_group)
             return loss, {}
 
-        with comm.use_tp(None if state.mesh is None else state.mesh.group("tp")):
+        # dropout draws its masks over the global batch (ops/nn.dropout_keep),
+        # also when remat recomputes a layer in the backward pass
+        with comm.use_tp(None if state.mesh is None else state.mesh.group("tp")), \
+                comm.use_dp(dp_group):
             return apply_step(state, loss_fn, grad_clip=grad_clip, lr_schedule=lr_schedule,
                               accum_steps=accum_steps, ema_decay=ema_decay, sync=sync)
 
@@ -459,17 +463,6 @@ class Trainer:
                 not eval_every or history[-1]["step"] % eval_every != 0):
             history[-1].update(eval_fn(self, int(self.state.step)) or {})
         return history
-
-
-def gather_params(tree, mesh, shard_dims: Dict[str, Optional[int]]):
-    """The whole leaves of a tree of this rank's tp blocks (split along
-    `shard_dims[path]` on `mesh`; parallel/mesh.shard_dims), detached."""
-    if mesh is None:
-        return tree_map(lambda x: x.detach(), tree)
-    group = mesh.group("tp")
-    return tree_map_with_path(
-        lambda path, x: x.detach() if shard_dims.get(path) is None
-        else comm.gather(x.detach(), shard_dims[path], group), tree)
 
 
 def synthetic_batch(cfg: SAMAudioConfig, generator: torch.Generator, batch_size: int = 2,

@@ -28,10 +28,10 @@ import torch
 
 from sam_audio_tpu_torch.models.sam_audio import resolve_device
 from sam_audio_tpu_torch.parallel import comm
-from sam_audio_tpu_torch.parallel.mesh import shard_dims, shard_params
+from sam_audio_tpu_torch.parallel.mesh import gather_params, shard_dims, shard_params
 from sam_audio_tpu_torch.train.flow_matching import (
     GradSync, Trainer, TrainState, apply_step, default_generators, draw_noise, ema_tree,
-    flow_matching_loss, gather_params, make_lr_schedule, new_train_state)
+    flow_matching_loss, make_lr_schedule, new_train_state)
 from sam_audio_tpu_torch.utils import tree_leaves_with_path, tree_map, tree_map_with_path
 
 # Attention projections in every DiT block (self + cross), the classic LoRA
@@ -231,7 +231,7 @@ class LoRATrainer:
                                           dp_group=dp_group)
                 return loss, {}
 
-            with comm.use_tp(self._tp):
+            with comm.use_tp(self._tp), comm.use_dp(dp_group):
                 return apply_step(state, loss_fn, grad_clip=grad_clip, lr_schedule=lr,
                                   accum_steps=accum_steps, ema_decay=ema_decay, sync=sync)
 

@@ -9,9 +9,12 @@ JAX's on a 4-device CPU mesh and against sdpa, with padding; dit_apply_sp
 with a ragged tail inside the last shard and its gradients against jax.grad;
 dp2 x tp2 separate at k=1 and k=2, int8 under tp2 and dp1 x tp4 (heads split
 mid-head) against JAX's separate with the same injected noise; the PE encode
-under tp2, exact and int8; an sp4 separate against the unsharded one; and
-the errors of make_mesh, ring_attention and dit_apply_sp. Bound 1e-4 (the
-bound of the port's parity tests), unless a line says otherwise.
+under tp2, exact and int8; an sp4 separate against the unsharded one, also
+over a tp-sharded model; quantize() after shard() against quantize-then-
+shard, bit for bit; a dp2 x tp2 model served from rank 0 (parallel/serve.py)
+against one process; and the errors of make_mesh, ring_attention and
+dit_apply_sp. Bound 1e-4 (the bound of the port's parity tests), unless a
+line says otherwise.
 """
 
 import datetime
@@ -116,6 +119,42 @@ def separate_batch(proc_cls, samples=(77, 50)):
 def separate_noise(batch, k=1):
     return np.random.RandomState(8).randn(
         len(batch.descriptions) * k, batch.anchor_alignment.shape[-1], 8).astype(np.float32)
+
+
+# the serving task: 3 requests through SeparationPipeline.run, then 2 through
+# a ContinuousBatcher, the second past max_seconds (streamed in 4 windows)
+SERVE_SAMPLES = (77, 50, 120, 64, 400)
+
+
+def serve_requests(model, pause_s=0.0):
+    """SERVE_SAMPLES through `model` (a SAMAudio, or a parallel.serve.Lockstep
+    on rank 0) from one global seed, as a server would take them: the
+    pipeline's 3, then the batcher's 2, submitted before its device thread
+    starts so that it plans them as one dispatch. `pause_s` leaves the
+    model idle in between. Returns [(target, residual)] in request order."""
+    import time
+
+    from sam_audio_tpu_torch.server import ContinuousBatcher
+    from sam_audio_tpu_torch.serving import SeparationPipeline, SeparationRequest
+
+    rng = np.random.RandomState(12)
+    words = ("a dog barking", "rain on a roof", "a bell", "wind", "a long tone")
+    reqs = [SeparationRequest(description=d, audio=(rng.randn(1, n) * 0.2).astype(np.float32))
+            for d, n in zip(words, SERVE_SAMPLES)]
+    torch.manual_seed(21)
+    out = [(r.target, r.residual)
+           for r in SeparationPipeline(model, bucket_seconds=0.01).run(reqs[:3])]
+    time.sleep(pause_s)
+    batcher = ContinuousBatcher(model, bucket_seconds=0.01, max_seconds=0.02,
+                                long_policy="stream", streaming_window_s=0.02, autostart=False)
+    futs = [batcher.submit(r) for r in reqs[3:]]
+    batcher.start()
+    try:
+        replies = [f.result(timeout=120) for f in futs]
+    finally:
+        batcher.shutdown()
+    assert replies[1].metadata == {"streamed": True, "num_windows": 4}
+    return out + [(r.target, r.residual) for r in replies]
 
 
 def pe_frames(vcfg):
@@ -246,6 +285,32 @@ def port_inference(rank, out_dir):
     r = m_sp.separate(long_batch, noise=noise)
     res["sep_sp"] = (plain.target, r.target)
 
+    # quantize() after shard() makes quantize-then-shard's tree, bit for bit
+    for bits in (8, 4):
+        before = dict(tree_leaves_with_path(model(dp2tp2, bits=bits).params))
+        after = dict(tree_leaves_with_path(model(dp2tp2).quantize(bits).params))
+        res[f"quantize_after_shard_{bits}"] = (
+            sorted(before) == sorted(after),
+            [p for p, x in before.items() if x.dtype != after[p].dtype
+             or x.shape != after[p].shape or not torch.equal(x, after[p])],
+            sum("w4" in p or "w8" in p for p in before))
+
+    # the sequence-parallel trunk with a tp-sharded DiT (gathered whole)
+    m_sptp = model(dp2tp2)
+    m_sptp.sp_mesh = sp
+    res["sep_sp_tp"] = (plain.target, m_sptp.separate(long_batch, noise=noise).target)
+
+    # serving from rank 0 through parallel.serve while ranks 1-3 follow; a
+    # short keep-alive, so that the idle pause sends some
+    from sam_audio_tpu_torch.parallel import serve as serve_module
+
+    serve_module.KEEPALIVE_S = 0.2
+
+    def front_end(lockstep):
+        return serve_requests(lockstep, pause_s=0.5), lockstep.calls, lockstep.keepalives
+
+    res["serve"] = serve_module.serve(model(dp2tp2), front_end)
+
     # the PE-Core encode under tp2, exact and int8
     vcfg = tiny_test_config().vision_encoder
     pe = load_params(os.path.join(out_dir, "pe.npz"))
@@ -319,6 +384,18 @@ def jax_inference(out_dir):
     return ref
 
 
+def port_serving(out_dir):
+    """The serving task in one process: the port, unsharded, on the CPU."""
+    from sam_audio_tpu_torch import SAMAudio
+    from sam_audio_tpu_torch.config import tiny_test_config
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+
+    model = SAMAudio.from_pretrained(
+        os.path.join(out_dir, "snapshot"), device="cpu", allow_random_towers=True,
+        tokenizer=ByteFallbackTokenizer(tiny_test_config().text_encoder.vocab_size))
+    return serve_requests(model)
+
+
 def write_inputs(out_dir):
     """The JAX package's snapshot, DiT and PE trees that both sides read."""
     import jax
@@ -346,6 +423,7 @@ def results(tmp_path_factory):
     ctx = spawn_world(port_inference, out_dir)
     try:
         ref = jax_inference(out_dir)
+        ref["served"] = port_serving(out_dir)
     finally:
         ranks = join_world(ctx, out_dir)
     return ranks, ref
@@ -487,6 +565,43 @@ def test_sharded_paths_match_the_unsharded_port(results, key):
     assert all(r["vision_fc1_rows"] == 32 and r["vision_mesh"] for r in ranks)
 
 
+def test_sp_with_a_tp_sharded_model_matches_the_unsharded_port(results):
+    """sp_mesh over the 4 ranks on a shard(dp2 x tp2) model: the DiT's tp
+    leaves are gathered whole for the ring trunk (fp32, 1e-5)."""
+    ranks, _ = results
+    for r in ranks:
+        plain, sharded = r["sep_sp_tp"]
+        np.testing.assert_allclose(sharded[0], plain[0], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_after_shard_is_bit_identical(results, bits):
+    """quantize() after shard() gives quantize-then-shard's tree on every
+    rank: the same leaves, dtypes and bits (JAX quantizes the sharded
+    arrays with global scales)."""
+    ranks, _ = results
+    for r in ranks:
+        same_paths, differing, quantized = r[f"quantize_after_shard_{bits}"]
+        assert same_paths and differing == [] and quantized > 0
+
+
+def test_sharded_serving_from_rank_0_equals_one_process(results):
+    """dp2 x tp2 served from rank 0 (SeparationPipeline, then a
+    ContinuousBatcher with a streamed request) while ranks 1-3 follow:
+    every reply equals a one-process run of the same requests (1e-5); every
+    follower ran rank 0's calls and returned on the shutdown (the world
+    finished); the idle pause sent keep-alive no-ops."""
+    ranks, ref = results
+    served, calls, keepalives = ranks[0]["serve"]
+    assert calls == 2 + 1 + 4 and keepalives >= 1   # 2 pipeline groups, 1 batch, 4 windows
+    assert [r["serve"] for r in ranks[1:]] == [calls] * 3
+    assert len(served) == len(ref["served"]) == len(SERVE_SAMPLES)
+    for (tgt, res), (want_t, want_r), n in zip(served, ref["served"], SERVE_SAMPLES):
+        assert tgt.shape == want_t.shape and n <= tgt.shape[0] < n + 8   # frame-rounded
+        np.testing.assert_allclose(tgt, want_t, rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(res, want_r, rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("key", ["pe", "pe_int8"])
 def test_pe_encode_under_tp_matches_jax(results, key):
     ranks, ref = results
@@ -514,4 +629,4 @@ def test_parallel_errors_match_jax(results):
     assert "sequence length 14 must divide over sp=4" in r["err_ring"]
     assert "must divide over sp=4" in r["err_sp_div"]
     assert "requires text memory" in r["err_sp_mem"]
-    assert "quantize() before shard()" in r["err_quantize_after_shard"]
+    assert r["err_quantize_after_shard"] is None   # JAX quantizes a sharded model too

@@ -8,8 +8,9 @@ One 4-rank gloo world (spawned once for the module) runs: two dp2 x tp2
 masks, so that the loss's mask count is the global one), a checkpoint of
 step 2 restored at dp4 x tp1 and at dp1 x tp4 and a third step on each mesh
 (orbax's resharding restore), two dp2 x tp2 `LoRATrainer` steps with JAX's
-adapters injected, and `python -m sam_audio_tpu_torch.train --dp 2 --tp 2
---device cpu` in every rank, whose export equals a one-process run's.
+adapters injected, a dropout-0.1 step whose every mask is its rank's block
+of a one-process step's, and `python -m sam_audio_tpu_torch.train --dp 2
+--tp 2 --device cpu` in every rank, whose export equals a one-process run's.
 """
 
 import dataclasses
@@ -123,16 +124,55 @@ def port_train(rank, out_dir):
     res["lora_merged"] = flat(lt.full_params(lt.ema_inference_params()))
 
     # dropout 0.1: the tp ranks draw the same masks on the whole activations,
-    # so the whole leaves stay equal on every rank after a step
-    dcfg = dataclasses.replace(cfg, transformer=dataclasses.replace(cfg.transformer,
-                                                                    dropout=0.1))
-    td = Trainer(dcfg, params(), mesh=dp2tp2, device="cpu", **{**TRAINER_KW, "warmup_steps": 0})
-    td.step(batches[0], t=t[0], x0=x0[0])
+    # so the whole leaves stay equal on every rank after a step; every mask
+    # is this rank's block of the one-process step's
+    masks, td = dropout_step(params(), dp2tp2, batches[0], t[0], x0[0])
     res["dropout_whole"] = {p: x for p, x in flat(td.state.params).items()
                             if td.state.shard_dims[p] is None}
+    res["dropout_masks"] = masks
+    res["dropout_params"] = flat(td.full_params())
 
     res["cli"] = cli.main(cli_args(out_dir, "cli_mesh") + ["--dp", "2", "--tp", "2"])
     return res
+
+
+def dropout_step(params, mesh, batch, t, x0):
+    """One Trainer step at dropout 0.1 (on `mesh`, or one process), with
+    every dropout site's keep mask recorded in order (remat recomputes the
+    layers' masks). Returns (the masks as numpy arrays, the trainer)."""
+    from sam_audio_tpu_torch.ops import nn as N
+    from sam_audio_tpu_torch.train.flow_matching import Trainer
+
+    cfg = port_cfg()
+    cfg = dataclasses.replace(cfg, transformer=dataclasses.replace(cfg.transformer, dropout=0.1))
+    trainer = Trainer(cfg, params, mesh=mesh, device="cpu",
+                      **{**TRAINER_KW, "warmup_steps": 0})
+    masks, draw = [], N.dropout_keep
+
+    def recorded(*args, **kwargs):
+        keep = draw(*args, **kwargs)
+        masks.append(keep.numpy().copy())
+        return keep
+
+    N.dropout_keep = recorded
+    try:
+        trainer.step(batch, t=t, x0=x0)
+    finally:
+        N.dropout_keep = draw
+    return masks, trainer
+
+
+def port_dropout_one_process(out_dir):
+    """dropout_step in this process, with no mesh, on the world's inputs."""
+    from sam_audio_tpu_torch.checkpoint import load_params
+    from sam_audio_tpu_torch.utils import tree_leaves_with_path
+
+    draws = np.load(os.path.join(out_dir, "draws.npz"))
+    masks, trainer = dropout_step(load_params(os.path.join(out_dir, "params.npz")), None,
+                                  to_torch(np_batch(port_cfg(), 20)),
+                                  torch.from_numpy(draws["t0"]), torch.from_numpy(draws["x0_0"]))
+    return {"masks": masks, "params": {p: x.detach().numpy().copy()
+                                       for p, x in tree_leaves_with_path(trainer.state.params)}}
 
 
 def cli_args(out_dir, name):
@@ -232,6 +272,7 @@ def results(tmp_path_factory):
     ctx = spawn_world(port_train, out_dir)
     try:
         ref = jax_train(out_dir)
+        ref["dropout"] = port_dropout_one_process(out_dir)
         # the same command line in one process: the mesh run must equal it
         ref["cli"] = cli.main(cli_args(out_dir, "cli_one"))
     finally:
@@ -282,6 +323,33 @@ def test_dropout_keeps_whole_leaves_equal_across_ranks(results):
     moved = [p for p, x in whole.items()
              if p.startswith("transformer/") and not np.array_equal(x, start[p])]
     assert moved   # the step moved the whole DiT leaves it trained
+
+
+def test_dropout_masks_are_blocks_of_the_one_process_masks(results):
+    """Every dropout site of a dp2 x tp2 step draws its mask over the global
+    batch, and the FFN's over the whole hidden width: each rank's mask is
+    its block of a one-process step's with the same seed, bit for bit
+    (rows by dp index, the hidden units column_linear keeps by tp index).
+    The step then equals the one-process step (1e-4)."""
+    ranks, ref, _ = results
+    want = ref["dropout"]["masks"]
+    for rank, r in enumerate(ranks):
+        d, t = divmod(rank, 2)   # rank = d * tp + t
+        assert len(r["dropout_masks"]) == len(want) > 4
+        split = 0
+        for got, full in zip(r["dropout_masks"], want):
+            rows = full.shape[0] // 2
+            block = full[d * rows:(d + 1) * rows]
+            if got.shape[-1] != block.shape[-1]:   # a column-parallel hidden layer
+                cols = block.shape[-1] // 2
+                block = block[..., t * cols:(t + 1) * cols]
+                split += 1
+            assert got.shape == block.shape
+            np.testing.assert_array_equal(got, block)
+        assert split > 0
+        assert set(r["dropout_params"]) == set(ref["dropout"]["params"])
+        for path, x in r["dropout_params"].items():
+            np.testing.assert_allclose(x, ref["dropout"]["params"][path], err_msg=path, **TOL)
 
 
 def test_dp2_tp2_lora_steps_match_jax(results):
