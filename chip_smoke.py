@@ -8,11 +8,18 @@
 Phases (any failure exits non-zero):
   1. device  — require CUDA; print the card's name and power limit; TF32 off.
   2. build   — compile the CUDA kernels in sam_audio_tpu_torch/csrc with nvcc
-               (one process per source, in parallel).
+               (one process per source, in parallel). Then the host runtime
+               (runtime/native.py): its library built with g++ from
+               csrc/host and loaded, its batch planner against the
+               serving layer's (runtime.plan_batches), a
+               float32 and an EXTENSIBLE WAV through audio_io.load_audio with
+               ffmpeg unreachable, its resampler against resample_np.
   3. kernels — hold each kernel against its plain PyTorch version on the card
                (bf16 at the main-path shapes, plus an fp32 case; padded and
                fully masked rows for the attention kernels, dilations 1/3/9
-               for the residual unit, 250/2000/14 tokens for the int4
+               for the residual unit (and fp32 at the decoder's 768
+               channels, whose dilation 9 takes the sliced variant),
+               250/2000/14 tokens for the int4
                product, whose two runs must give the same bits); time kernel,
                plain version and one PyTorch library call as a yardstick, the
                kernel and the library call also with the host out of the
@@ -185,9 +192,15 @@ within 1e-4 of the leaf's largest, losses and parameters within 2e-3, every
 layer's wq and q_norm given a gradient on the card, 8 attention launches (2
 steps x 2 layers x forward and recomputation), and remat="dots" against
 "full".
+Phase 3 also runs kernel 3 at widths that are not multiples of 32
+(NARROW_WIDTHS, padded to the next one in the kernel), bf16 and fp32, B = 1
+and 8, each timed against its bound and the F.conv1d chain.
+Phase 4 also separates with tiny_test_config (fp32; kernel 3 at 4 and 8
+channels) on the card and on the CPU (SMALL_TOL).
 Phase 4 also runs the port's three examples (python -m
 sam_audio_tpu_torch.examples.{span_prompting,visual_prompting,
-train_flow_matching} --device cuda) in this process at their small widths,
+train_flow_matching} --device cuda) in this process at their small widths
+(the prompting ones at the JAX examples' codec, encoder 8 / decoder 64),
 each counted (kernel 3 in all, kernel 1 in the two prompting ones).
 Phase 4 also attaches a narrow native span predictor to the small model:
 logits card vs CPU (2e-3), the same spans with no frame within 1e-3 of the
@@ -455,6 +468,11 @@ def check_flash_attention(results):
 # of each one separate makes (1 encode + 2 decodes; 3 dilations each)
 ENCODER_SHAPES = ((64, 480000), (128, 240000), (256, 30000), (512, 3000))
 DECODER_SHAPES = ((768, 3000), (384, 30000), (192, 240000), (96, 480000))
+# widths that are not multiples of 32 (kernel 3 pads them to the next one):
+# the JAX examples' demo codec (encoder 8: units of 8 / 16 / 32 / 64; decoder
+# 64: 32 / 16 / 8 / 4) and tiny_test_config's (4, 8), at ragged lengths
+NARROW_WIDTHS = (4, 8, 16, 24, 48, 80, 200)   # 200: the padded split (chunk 32)
+NARROW_T = 24001
 
 
 def check_fused_conv(results):
@@ -559,6 +577,8 @@ def check_fused_conv(results):
         results["fp32_err"] = max(results.get("fp32_err", 0.0),
                                   check_close(f"fp32 C=64 T=3000 dil={dil}", out, ref,
                                               1e-4, 1e-4))
+    results["fp32_decoder_768"] = check_fp32_wide(unit, library_chain, g)
+    results["narrow"] = check_narrow_widths(unit, library_chain, g)
     p = unit(64, seed=1)
     xg = torch.randn(1, 64, 3000, generator=g, device=DEVICE, requires_grad=True)
     check_refuses_grad("fused_residual_unit",
@@ -567,6 +587,93 @@ def check_fused_conv(results):
     results.update(name="fused_residual_unit", totals=totals, bound_by=by,
                    max_abs_err=max(errs), per_shape=per_shape,
                    tolerance="bf16 atol 5e-2 + rtol 2e-2; fp32 atol 1e-4 + rtol 1e-4")
+
+
+def check_fp32_wide(unit, library_chain, g):
+    """Kernel 3 in fp32 at the decoder's widest unit (C = 768, T = 3000, B = 1),
+    dilations 1/3/9: at dilation 9 every channel's staged input no longer fits
+    shared memory and the variant that stages 32 input channels at a time runs.
+    Within 1e-4 of the plain version, one launch a call, two runs bit-equal;
+    device ms beside the bound (fp32 FMA peak) and the F.conv1d chain."""
+    import torch
+
+    from sam_audio_tpu_torch.ops import fused_conv
+    from sam_audio_tpu_torch.ops.fused_conv import (
+        fused_residual_unit, fused_residual_unit_plain, residual_unit_operands)
+
+    c, t = 768, 3000
+    x = torch.randn(1, c, t, generator=g, device=DEVICE)
+    records = []
+    for dil in (1, 3, 9):
+        p = unit(c, seed=2000 + dil)
+        n = fused_residual_unit.launches
+        out = fused_residual_unit(p, x, dil, torch.float32)
+        require(fused_residual_unit.launches == n + 1, f"fp32 C={c} dil={dil}: no launch")
+        ref = fused_residual_unit_plain(*residual_unit_operands(p, x, torch.float32), dil)
+        torch.cuda.synchronize()
+        err = check_close(f"fp32 C={c} T={t} dil={dil}", out, ref, 1e-4, 1e-4)
+        require(torch.equal(out, fused_residual_unit(p, x, dil, torch.float32)),
+                f"fp32 C={c} dil={dil}: two runs on one input differ")
+        tile = fused_conv._load().sa_res_unit_plan(c, dil, 0)
+        dev = device_ms(lambda: fused_residual_unit(p, x, dil, torch.float32), iters=5)
+        lib_dev = device_ms(lambda: library_chain(p, x, dil), iters=5)
+        bms, by = bound_ms(2 * 8 * c * c * t, 2 * c * t * 4 + 8 * c * c * 4 + 4 * c * 4,
+                           peak=PEAK_FP32)
+        records.append(dict(C=c, T=t, dilation=dil, route="sliced" if tile < 0 else "whole",
+                            time_tile=abs(tile), max_abs_err=err, device_ms=dev,
+                            library_device_ms=lib_dev, bound_ms=bms, bound_by=by))
+        log(f"    {records[-1]['route']} (tile {abs(tile)}): device {dev:.3f} ms, conv1d chain "
+            f"device {lib_dev:.3f} ms, bound {bms:.4f} ms ({by})")
+    require(records[-1]["route"] == "sliced", "fp32 C=768 dil=9: expected the sliced variant")
+    return records
+
+
+def check_narrow_widths(unit, library_chain, g):
+    """Kernel 3 at NARROW_WIDTHS, dilations 1/3/9, B = 1 and 8, T = NARROW_T:
+    one launch a call (the padded route, no plain fallback), bf16 against the
+    plain version at 5e-2 / 2e-2 and fp32 at 1e-4, two runs bit-equal; the
+    bf16 kernel's device ms beside its bound and the F.conv1d chain's device
+    ms. Returns one record a shape."""
+    import torch
+
+    from sam_audio_tpu_torch.ops.fused_conv import (
+        bf16_chunk, fused_residual_unit, fused_residual_unit_plain, padded_width,
+        residual_unit_operands)
+
+    records = []
+    for c in NARROW_WIDTHS:
+        for b in (1, 8):
+            x = torch.randn(b, c, NARROW_T, generator=g, device=DEVICE)
+            for dil in (1, 3, 9):
+                p = unit(c, seed=1000 + c + dil)
+                rec = dict(B=b, C=c, C_padded=padded_width(c), chunk=bf16_chunk(c), T=NARROW_T,
+                           dilation=dil)
+                for dtype, atol, rtol in ((torch.bfloat16, 5e-2, 2e-2),
+                                          (torch.float32, 1e-4, 1e-4)):
+                    xd = x.to(dtype)
+                    n = fused_residual_unit.launches
+                    out = fused_residual_unit(p, xd, dil, dtype)
+                    require(fused_residual_unit.launches == n + 1,
+                            f"fused_residual_unit C={c}: no launch")
+                    ref = fused_residual_unit_plain(*residual_unit_operands(p, xd, dtype), dil)
+                    torch.cuda.synchronize()
+                    tag = "bf16" if dtype == torch.bfloat16 else "fp32"
+                    rec[f"max_abs_err_{tag}"] = check_close(
+                        f"{tag} B={b} C={c} T={NARROW_T} dil={dil} (padded to "
+                        f"{padded_width(c)})", out, ref, atol, rtol)
+                    require(torch.equal(out, fused_residual_unit(p, xd, dil, dtype)),
+                            f"fused_residual_unit C={c} {tag}: two runs on one input differ")
+                xb = x.to(torch.bfloat16)
+                dev = device_ms(lambda: fused_residual_unit(p, xb, dil, torch.bfloat16), iters=5)
+                lib_dev = device_ms(lambda: library_chain(p, xb, dil), iters=5)
+                flops = b * 2 * 8 * c * c * NARROW_T
+                nbytes = b * 2 * c * NARROW_T * 2 + 8 * c * c * 2 + 4 * c * 4
+                bms, by = bound_ms(flops, nbytes)
+                rec.update(device_ms=dev, library_device_ms=lib_dev, bound_ms=bms, bound_by=by)
+                records.append(rec)
+                log(f"    bf16 kernel device {dev:.4f} ms, conv1d chain device {lib_dev:.4f} ms, "
+                    f"bound {bms:.5f} ms ({by})")
+    return records
 
 
 def int4_launches_k1(cfg, text_tokens=14, nfe=32):
@@ -857,6 +964,121 @@ def small_agreement():
     counts = compare(200, "quantize(bits=4)")
     require(counts["matmul_int4"] == 2 * 11 * 32 + 32,
             f"small int4: {counts['matmul_int4']} int4 launches, expected {2 * 11 * 32 + 32}")
+
+
+def tiny_agreement():
+    """tiny_test_config (codec widths 4 / 16: kernel 3 at 4 and 8 channels,
+    padded to 32) in fp32 through separate() on the card and on the CPU with
+    the same noise: within SMALL_TOL, kernel 3 launched 18 times (6 units to
+    encode, 6 for each of the two decodes)."""
+    import numpy as np
+
+    from sam_audio_tpu_torch import SAMAudio, SAMAudioProcessor, tiny_test_config
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+    from sam_audio_tpu_torch.utils import tree_map
+
+    log("[small] tiny_test_config, fp32 separate on the card vs on the CPU")
+    cfg = tiny_test_config()
+    tok = ByteFallbackTokenizer(cfg.text_encoder.vocab_size)
+    gpu = SAMAudio.init_random(cfg, seed=0, device=DEVICE, tokenizer=tok)
+    cpu = SAMAudio(cfg, tree_map(lambda x: x.cpu(), gpu.params), device="cpu",
+                   tokenizer=tok, allow_random_towers=True)
+    hop = cfg.audio_codec.hop_length
+    proc = SAMAudioProcessor(hop, cfg.audio_codec.sample_rate)
+    frames = 48
+    batch = proc(descriptions=["a dog barking", "rain"],
+                 audios=[mixture(frames * hop, 8000, 3), mixture(frames * hop * 3 // 4, 8000, 4)])
+    noise = np.random.RandomState(7).randn(
+        2, frames, 2 * cfg.audio_codec.codebook_dim).astype(np.float32)
+    reset_counts()
+    a = gpu.separate(batch, noise=noise)
+    counts = read_counts()
+    b = cpu.separate(batch, noise=noise)
+    worst = 0.0
+    for i in range(2):
+        for got, ref in ((a.target[i], b.target[i]), (a.residual[i], b.residual[i])):
+            require(got.shape == ref.shape and np.isfinite(got).all(), "tiny: bad output")
+            worst = max(worst, float(np.abs(got - ref).max()))
+    log(f"  T={frames} frames: launches {counts}, max |gpu - cpu| = {worst:.3e}")
+    require(worst <= SMALL_TOL, f"tiny: card and CPU disagree ({worst:.3e} > {SMALL_TOL})")
+    require(counts["fused_residual_unit"] == 18,
+            f"tiny: {counts['fused_residual_unit']} residual-unit launches, expected 18")
+    return {"max_abs_diff": worst, "launches": counts}
+
+
+def native_phase():
+    """The host runtime (sam_audio_tpu_torch/runtime/native.py): built with g++
+    from csrc/host on this host and loaded; its batch planner against the
+    serving layer's (runtime.plan_batches) on random lengths (including a
+    unit <= 0); a float32 WAV and an
+    EXTENSIBLE one through audio_io.load_audio with ffmpeg made unreachable,
+    bit-equal to the data; the resampler against resample_np (rtol 1e-3,
+    atol 1e-4) on 10 s of 44.1 kHz stereo, both timed on the host."""
+    import shutil
+    import struct
+
+    import numpy as np
+
+    from sam_audio_tpu_torch import audio_io
+    from sam_audio_tpu_torch.ops.resample import resample_np
+    from sam_audio_tpu_torch.runtime import native, plan_batches
+
+    log("[native] host runtime")
+    t0 = time.perf_counter()
+    require(native.build_native(quiet=True) and native.native_available(),
+            "native: the host library did not build or load")
+    build_s = time.perf_counter() - t0
+    log(f"  built and loaded {native.library_path()} in {build_s:.2f} s")
+    rng = np.random.RandomState(0)
+    for hop, steps, max_batch in ((1920, 1, 4), (8, 16, 2), (0, 4, 3)):
+        lengths = rng.randint(1, 500000, size=64).tolist()
+        got = native.plan_batches(lengths, hop, steps, max_batch)
+        require(got == plan_batches(lengths, hop, steps, max_batch),
+                f"native: plan_batches differs from runtime.plan_batches at hop={hop}")
+    work = os.path.join(HERE, "build", "native_phase")
+    os.makedirs(work, exist_ok=True)
+    wav = (0.8 * rng.rand(2, 48000) - 0.4).astype(np.float32)
+    data = np.ascontiguousarray(wav.T).reshape(-1).astype("<f4").tobytes()
+    guid = struct.pack("<H", 3) + bytes.fromhex("000000001000800000aa00389b71")
+    files = {}
+    for name, fmt in (("float32", struct.pack("<HHIIHH", 3, 2, 48000, 48000 * 8, 8, 32)),
+                      ("extensible_float32",
+                       struct.pack("<HHIIHHHHI", 0xFFFE, 2, 48000, 48000 * 8, 8, 32, 22, 32, 3)
+                       + guid)):
+        chunks = (b"fmt " + struct.pack("<I", len(fmt)) + fmt + b"data"
+                  + struct.pack("<I", len(data)) + data)
+        files[name] = os.path.join(work, f"{name}.wav")
+        with open(files[name], "wb") as f:
+            f.write(b"RIFF" + struct.pack("<I", 4 + len(chunks)) + b"WAVE" + chunks)
+
+    def no_ffmpeg(path, sample_rate=None):
+        raise AssertionError(f"native: load_audio sent {path} to ffmpeg")
+
+    real = audio_io._ffmpeg_decode
+    audio_io._ffmpeg_decode = no_ffmpeg
+    try:
+        for name, path in files.items():
+            got, sr = audio_io.load_audio(path)
+            require(sr == 48000 and np.array_equal(got, wav),
+                    f"native: load_audio of the {name} WAV is not the data")
+    finally:
+        audio_io._ffmpeg_decode = real
+    clip = (0.3 * rng.randn(2, 441000)).astype(np.float32)
+    t0 = time.perf_counter()
+    ours = native.resample_native(clip, 44100, 48000)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    ref = resample_np(clip, 44100, 48000)
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    require(ours.shape == ref.shape and np.allclose(ours, ref, rtol=1e-3, atol=1e-4),
+            "native: resample_native disagrees with resample_np")
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"  plan_batches native == runtime.plan_batches; float32 and EXTENSIBLE WAVs through load_audio "
+        f"(ffmpeg unreachable); resample 10 s stereo 44.1 -> 48 kHz: native "
+        f"{native_ms:.1f} ms, resample_np {numpy_ms:.1f} ms (host), max |diff| "
+        f"{float(np.abs(ours - ref).max()):.2e}")
+    return {"build_s": build_s, "resample_10s_stereo_host_ms": {"native": native_ms,
+                                                                 "numpy": numpy_ms}}
 
 
 def cpu_window_noise(seed, item, window, shape, device):
@@ -3588,11 +3810,15 @@ def main() -> int:
             json.dump({"parallel": record, "power": smi}, f, indent=1)
         log(smi)
         return 0
+    # 2b. the host runtime, built with g++ on this host
+    host_runtime = native_phase()
     for check in checks.values():
         check()
 
-    # 4. small model: card vs CPU, exact and int4; two Trainer steps
+    # 4. small model: card vs CPU, exact and int4; tiny_test_config; two
+    # Trainer steps
     small_agreement()
+    tiny = tiny_agreement()
     small_train = small_training()
     examples = examples_phase()
 
@@ -3688,6 +3914,10 @@ def main() -> int:
             extra["judge_encoder_k8_candidates"] = res["judge_encoder_k8"]
         if "fwd_bwd" in res:   # forward + backward through the autograd Function
             extra["forward_backward"] = res["fwd_bwd"]
+        if "narrow" in res:    # kernel 3 at widths that are not multiples of 32
+            extra["narrow_widths"] = res["narrow"]
+        if "fp32_decoder_768" in res:   # kernel 3 in fp32 at 768 channels
+            extra["fp32_decoder_768"] = res["fp32_decoder_768"]
         extra["train_launches_per_step"] = train["launches_per_step"][res["name"]]
         extra["parallel_launches_per_rank"] = parallel_launches[res["name"]]
         return {**extra, "name": res["name"], "route": "cuda", "source": source,
@@ -3735,6 +3965,7 @@ def main() -> int:
                "int4_10s": int4, "int8_10s": int8, "visual_10s": visual,
                "visual_stream_30s": visual_stream, "spans_10s": spans, "serve": serve,
                "eval": evaluation, "small_train": small_train, "examples": examples,
+               "tiny": tiny, "host_runtime": host_runtime,
                "train": train,
                "parallel": parallel, "power": smi}
     os.makedirs(os.path.join(HERE, "build"), exist_ok=True)

@@ -1,9 +1,12 @@
-"""Host-side audio file I/O (numpy only).
+"""Host-side audio file I/O (numpy, and the host runtime's WAV reader).
 
   * WAV read/write in pure numpy (stdlib `wave` handles the RIFF framing),
     covering PCM8/16/24/32.
-  * Other containers (mp3/mp4/flac, float WAV) route through the `ffmpeg`
-    CLI when present; otherwise a clear error tells the user to pre-convert.
+  * IEEE-float (format 3) and WAVE_FORMAT_EXTENSIBLE WAVs, which `wave`
+    rejects, through the native reader (runtime/native.read_wav_native).
+  * Other containers (mp3/mp4/flac) and WAVs the native reader cannot parse
+    (float64, ADPCM) route through the `ffmpeg` CLI when present; otherwise
+    a clear error tells the user to pre-convert.
 """
 
 from __future__ import annotations
@@ -12,9 +15,11 @@ import os
 import shutil
 import subprocess
 import wave
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+
+from sam_audio_tpu_torch.runtime.native import read_wav_native
 
 
 def read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -57,15 +62,15 @@ def write_wav(path: str, waveform: np.ndarray, sample_rate: int):
         f.writeframes(pcm.tobytes())
 
 
-def _ffmpeg_decode(path: str) -> Tuple[np.ndarray, int]:
+def _ffmpeg_decode(path: str, sample_rate: Optional[int] = None) -> Tuple[np.ndarray, int]:
     ffmpeg = shutil.which("ffmpeg")
     ffprobe = shutil.which("ffprobe")
     if ffmpeg is None:
         raise RuntimeError(
-            f"Cannot decode {path!r}: not a PCM WAV file and no ffmpeg on "
-            "PATH. Pre-convert to WAV."
+            f"Cannot decode {path!r}: not a WAV file that this package reads "
+            "and no ffmpeg on PATH. Pre-convert to WAV."
         )
-    sr, num_channels = None, None
+    sr, num_channels = sample_rate, None
     if ffprobe is not None:
         out = subprocess.run(
             [ffprobe, "-v", "error", "-select_streams", "a:0", "-show_entries",
@@ -73,7 +78,7 @@ def _ffmpeg_decode(path: str) -> Tuple[np.ndarray, int]:
             capture_output=True, text=True, check=True,
         ).stdout.strip()
         parts = out.split(",") if out else []
-        if parts and parts[0]:
+        if sr is None and parts and parts[0]:
             sr = int(parts[0])
         if len(parts) > 1 and parts[1]:
             num_channels = int(parts[1])
@@ -88,12 +93,17 @@ def _ffmpeg_decode(path: str) -> Tuple[np.ndarray, int]:
     return data.reshape(-1, ch).T.copy(), sr
 
 
-def load_audio(path: str) -> Tuple[np.ndarray, int]:
-    """Load any audio file -> ((channels, T) float32, sr) at the file's own
-    rate; resampling is the caller's job (ops/resample.resample_np)."""
+def load_audio(path: str, sample_rate: Optional[int] = None) -> Tuple[np.ndarray, int]:
+    """Load any audio file -> ((channels, T) float32, sr). A WAV comes back at
+    its own rate, through stdlib `wave` or, for float and extensible WAVs,
+    the native reader; only what neither parses goes to ffmpeg, which
+    resamples to `sample_rate` when given. Resampling is otherwise the
+    caller's job (ops/resample.resample_np)."""
     if os.path.splitext(path)[1].lower() == ".wav":
         try:
             return read_wav(path)
         except (wave.Error, ValueError):
-            pass  # float / extensible WAV -> ffmpeg
-    return _ffmpeg_decode(path)
+            native = read_wav_native(path)
+            if native is not None:
+                return native
+    return _ffmpeg_decode(path, sample_rate=sample_rate)

@@ -46,6 +46,18 @@
 //   fp32: fp32 FMA products, a block owns one time tile (64, 32 or 16) and
 //         every channel: s1 with its halo and h in shared memory, weights
 //         staged in 32-deep slices, each thread a 4-channel x TT/16-time block.
+//         Where s1 of every channel with its halo does not fit (C above ~640
+//         at dilation 9), the SLICED variant stages s1 for 32 input channels
+//         at a time, again for each 64 output channels; h stays whole.
+//   Any C: both paths work on Cp = C rounded up to a multiple of 32 channels.
+//         Channels past C are zeros where they are staged (input rows, s1,
+//         h), the host pads the weights with zero rows and columns, the
+//         biases with 0 and the alphas with 1, so they stay exact zeros
+//         through both products and the snakes (snake(0) = 0); only rows
+//         c < C are read from x or stored. In bf16 that is the PAD variant
+//         of the kernel (fused up to Cp = 128, else split at 32); widths
+//         that are multiples of 32 run the kernels they ran before, whose
+//         masks would cost 2-8% (the split shapes most).
 
 #include <algorithm>
 #include <initializer_list>
@@ -102,6 +114,9 @@ enum Mode { FUSED = 0, CONV7 = 1, CONV1 = 2 };
 // row of 16-byte multiples, at most 256)
 __host__ __device__ inline int staged_rows(int halo) { return (TT + 2 * halo + 7) / 8 * 8; }
 
+// the channels both paths compute: C rounded up to a multiple of 32
+__host__ __device__ inline int padded_width(int C) { return (C + 31) / 32 * 32; }
+
 // the epilogue tile: channel rows of 64 samples (128 bytes) and 16 of padding
 constexpr int EP_LD = 144;
 // channels of one epilogue pass: the fused kernel's 1x1 pass, else the chunk
@@ -157,7 +172,10 @@ __device__ __forceinline__ float snake_pair(float x, float2 a) { return x + a.y 
 //   warpgroups 1-2: 64 time rows each; per chunk and tap, four wgmma k steps
 //     (A = staged rows, B = the weight slice), one commit group per tap, the
 //     previous group retired (and its slice freed) as the next is issued.
-template <int NC, int MODE>
+// PAD (C not a multiple of 32): the unit runs on Cp = C rounded up to a
+// multiple of 32 channels, the ones past C staged as zeros, never read from
+// x nor stored; without PAD, Cp = C and the code is as it was for them.
+template <int NC, int MODE, bool PAD>
 __global__ void __launch_bounds__(THREADS_BF16, 1)
 res_unit_wgmma_kernel(const ResArgs a) {
   constexpr int TAPS = MODE == CONV1 ? 1 : KSIZE;
@@ -170,7 +188,7 @@ res_unit_wgmma_kernel(const ResArgs a) {
   const uint32_t raw = sa::smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzled slices need 1024-byte alignment
   unsigned char* base_p = smem_raw + (base - raw);
-  const int C = a.C, Tn = a.T, dil = a.dil;
+  const int C = a.C, Cp = PAD ? padded_width(C) : C, Tn = a.T, dil = a.dil;
   const int halo = MODE == CONV1 ? 0 : 3 * dil;
   const int R = staged_rows(halo);
   const int stage_bytes = R * KCH * 2;
@@ -245,7 +263,8 @@ res_unit_wgmma_kernel(const ResArgs a) {
     // wholly outside it (T is a multiple of 8), the outside ones zeros,
     // which is the conv's zero padding (snake(0) = 0). The transpose makes
     // time rows with the first snake applied and rounded: a lane makes one
-    // row of 8 channels, one 16-byte store. ----
+    // row of 8 channels, one 16-byte store. Channels C .. Cp - 1 (not
+    // fetched) are staged as zeros. ----
     const int sid = threadIdx.x - 32;
     const int my_items = a.n_items > (int)blockIdx.x ? (a.n_items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
     const int n_chunks_mine = my_items * nci;
@@ -281,14 +300,15 @@ res_unit_wgmma_kernel(const ResArgs a) {
       sa::mbar_wait(sempty(st), ((q / NSTAGE) & 1) ^ 1);
       const bf16* raw = reinterpret_cast<const bf16*>(base_p + (raw_s - base) + (q % 2) * raw_bytes);
       unsigned char* stage = base_p + (stage_s - base) + st * stage_bytes;
-      const int kb_n = min(KCH, C - kc * KCH) / 8, r32 = (R + 31) / 32;
+      const int kb_n = min(KCH, Cp - kc * KCH) / 8, r32 = (R + 31) / 32;
       for (int unit = sid / 32; unit < kb_n * r32; unit += 3) {
         const int kb = unit / r32, u = (unit % r32) * 32 + lane;
         if (u >= R) continue;
+        const int valid = C - (kc * KCH + kb * 8);  // PAD: channels of this row below C
         float v[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) {
-          v[i] = sa::to_f(raw[(kb * 8 + i) * RA + off + u]);
+          v[i] = !PAD || i < valid ? sa::to_f(raw[(kb * 8 + i) * RA + off + u]) : 0.f;
           if (MODE != CONV1) v[i] = snake_pair(v[i], a.a_in[kc * KCH + kb * 8 + i]);
         }
         *reinterpret_cast<uint4*>(stage + kb * R * 16 + u * 16) =
@@ -327,7 +347,7 @@ res_unit_wgmma_kernel(const ResArgs a) {
       const int st = suse % NSTAGE;
       sa::mbar_wait(sfull(st), (suse / NSTAGE) & 1);
       const uint32_t stage = stage_s + st * stage_bytes + (64 * wg) * 16;
-      const int ksteps = min(KCH, C - kc * KCH) / 16;
+      const int ksteps = min(KCH, Cp - kc * KCH) / 16;
       for (int j = 0; j < TAPS; ++j) {
         const int slot = wuse % a.slots;
         sa::mbar_wait(wfull(slot), (wuse / a.slots) & 1);
@@ -366,7 +386,8 @@ res_unit_wgmma_kernel(const ResArgs a) {
     // rows of 64 samples, 144 bytes apart): x comes in and the result goes
     // out in 16-byte pieces along time; the fragments (row + 8 (e / 2),
     // column 8 j + 2 tq + e % 2) meet the tile in 2-byte steps that hit 32
-    // banks. CONV7 stores s2 = snake(h); the others h + x.
+    // banks. CONV7 stores s2 = snake(h); the others h + x. Rows c >= C
+    // (padding) are neither read nor stored.
     unsigned char* ep = base_p + (ep_s - base) + wg * ep_bytes;
     const int trow0 = t0 + 64 * wg;
     auto store = [&](const auto& v_acc, int cbase) {
@@ -377,7 +398,8 @@ res_unit_wgmma_kernel(const ResArgs a) {
         for (int p = tg; p < NCE * 8; p += WG_THREADS) {
           const int c = p / 8, t = trow0 + (p % 8) * 8;
           uint4 v = make_uint4(0u, 0u, 0u, 0u);
-          if (t < Tn) v = *reinterpret_cast<const uint4*>(xb + (size_t)(cbase + c) * Tn + t);
+          if (t < Tn && (!PAD || cbase + c < C))
+            v = *reinterpret_cast<const uint4*>(xb + (size_t)(cbase + c) * Tn + t);
           *reinterpret_cast<uint4*>(ep + c * EP_LD + (p % 8) * 16) = v;
         }
         sa::named_barrier(2 + wg, WG_THREADS);
@@ -398,7 +420,7 @@ res_unit_wgmma_kernel(const ResArgs a) {
       sa::named_barrier(2 + wg, WG_THREADS);
       for (int p = tg; p < NCE * 8; p += WG_THREADS) {
         const int c = p / 8, t = trow0 + (p % 8) * 8;
-        if (t < Tn)
+        if (t < Tn && (!PAD || cbase + c < C))
           *reinterpret_cast<uint4*>(ob + (size_t)(cbase + c) * Tn + t) =
               *reinterpret_cast<const uint4*>(ep + c * EP_LD + (p % 8) * 16);
       }
@@ -454,14 +476,17 @@ res_unit_wgmma_kernel(const ResArgs a) {
 
 // Output-channel chunk of the bf16 path for width C: all of C (one fused
 // kernel) for C = 32, 64, 96, 128, 192 or 256, else the widest of 128 / 96 /
-// 64 / 32 that divides C (two kernels through a scratch s2). 0 when C is not
-// a multiple of 32.
+// 64 / 32 that divides C (two kernels through a scratch s2). A C that is not
+// a multiple of 32 runs padded (PAD): fused on Cp = C rounded up to a multiple
+// of 32 up to Cp = 128, else split at 32. 0 when C < 1.
 int bf16_chunk(int C) {
-  if (C % 32 != 0 || C < 32) return 0;
+  if (C < 1) return 0;
+  const int Cp = padded_width(C);
+  if (Cp != C) return Cp <= 128 ? Cp : 32;
   if (C <= 128 || C == 192 || C == 256) return C;
-  for (int nc : {128, 96, 64, 32})
+  for (int nc : {128, 96, 64})
     if (C % nc == 0) return nc;
-  return 0;
+  return 32;
 }
 
 size_t wgmma_smem_bytes(int NC, int mode, int slots, int halo) {
@@ -470,46 +495,47 @@ size_t wgmma_smem_bytes(int NC, int mode, int slots, int halo) {
          (size_t)2 * ep_channels(NC, mode) * EP_LD;
 }
 
-template <int NC, int MODE>
+template <int NC, int MODE, bool PAD>
 int launch_wgmma(ResArgs a, int B, int halo, cudaStream_t stream) {
   constexpr size_t kStatic = 1024;  // the barriers, with room to spare
   const size_t fixed = wgmma_smem_bytes(NC, MODE, 0, halo);
   a.slots = (int)std::min<size_t>(MAX_SLOTS, (kMaxSmem - kStatic - fixed) / ((size_t)NC * 128));
   if (a.slots < 2) return (int)cudaErrorInvalidValue;
   a.n_tiles = (a.T + TT - 1) / TT;
-  a.n_chunks = MODE == FUSED ? 1 : a.C / NC;
+  a.n_chunks = MODE == FUSED ? 1 : (PAD ? padded_width(a.C) : a.C) / NC;
   a.n_items = B * a.n_tiles * a.n_chunks;
   const size_t smem = wgmma_smem_bytes(NC, MODE, a.slots, halo);
   const int grid = std::min(a.n_items, sa::num_sms());
-  return sa::launch(res_unit_wgmma_kernel<NC, MODE>, dim3(grid), dim3(THREADS_BF16), smem, stream,
-                    a);
+  return sa::launch(res_unit_wgmma_kernel<NC, MODE, PAD>, dim3(grid), dim3(THREADS_BF16), smem,
+                    stream, a);
 }
 
-template <int NC>
+template <int NC, bool PAD>
 int run_split(ResArgs a, const bf16* x, const float* b7, const float* b1, bf16* s2, bf16* out,
               int B, cudaStream_t stream) {
   if (s2 == nullptr) return (int)cudaErrorInvalidValue;
   a.src = x; a.x = nullptr; a.bias = b7; a.b1 = nullptr; a.dst = s2;
-  int err = launch_wgmma<NC, CONV7>(a, B, 3 * a.dil, stream);
+  int err = launch_wgmma<NC, CONV7, PAD>(a, B, 3 * a.dil, stream);
   if (err != 0) return err;
   a.src = s2; a.x = x; a.bias = b1; a.a_in = nullptr; a.a_out = nullptr; a.dst = out;
-  return launch_wgmma<NC, CONV1>(a, B, 0, stream);
+  return launch_wgmma<NC, CONV1, PAD>(a, B, 0, stream);
 }
 
 // ---------------------------------------------------------------- fp32 path
 
-// acc[r][i] += sum_k W[co0 + 4*cg + r][k] * B[k][tg + 16*i] over k < kdim,
-// where W(co, k) = w[co * w_ld + k] and B(k, t) = bsrc[k * b_ld + t].
+// acc[r][i] += sum_k W[co0 + 4*cg + r][k] * B[k][tg + 16*i] over k < kdim (a
+// multiple of KC), where W(co, k) = w[co * w_ld + k], zero for co >= C or
+// k >= kC, and B(k, t) = bsrc[k * b_ld + t].
 template <int TR>
 __device__ __forceinline__ void fma_gemm(const float* __restrict__ w, int w_ld, int kdim,
-                                         const float* bsrc, int b_ld, int co0, int C,
+                                         const float* bsrc, int b_ld, int co0, int C, int kC,
                                          float* As, float (&acc)[4][TR]) {
   const int tg = threadIdx.x % 16, cg = threadIdx.x / 16;
   for (int k0 = 0; k0 < kdim; k0 += KC) {
     __syncthreads();
     for (int e = threadIdx.x; e < KC * CO; e += THREADS) {
       const int kk = e % KC, col = e / KC, co = co0 + col;
-      As[kk * LA + col] = co < C ? w[(size_t)co * w_ld + k0 + kk] : 0.f;
+      As[kk * LA + col] = co < C && k0 + kk < kC ? w[(size_t)co * w_ld + k0 + kk] : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -528,7 +554,18 @@ __device__ __forceinline__ void fma_gemm(const float* __restrict__ w, int w_ld, 
   }
 }
 
-template <int TT>
+// S1 rows 0 .. rows - 1 = snake(x) of channels c0 .. c0 + rows - 1 over
+// t0 - halo .. t0 - halo + ls - 1; zero past C and outside 0 .. Tn - 1.
+__device__ __forceinline__ void stage_snake1(float* S1, const float* __restrict__ xb,
+                                             const float* __restrict__ a1, int c0, int rows,
+                                             int C, int Tn, int t0, int halo, int ls) {
+  for (int e = threadIdx.x; e < rows * ls; e += THREADS) {
+    const int c = c0 + e / ls, u = e % ls, t = t0 - halo + u;
+    S1[e] = (c < C && t >= 0 && t < Tn) ? snake_exact(xb[(size_t)c * Tn + t], a1[c]) : 0.f;
+  }
+}
+
+template <int TT, bool SLICED>
 __global__ void __launch_bounds__(THREADS)
 res_unit_fma_kernel(const float* __restrict__ x, const float* __restrict__ w7,
                     const float* __restrict__ b7, const float* __restrict__ w1,
@@ -539,19 +576,17 @@ res_unit_fma_kernel(const float* __restrict__ x, const float* __restrict__ w7,
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int halo = 3 * dil;
   const int ls = TT + 2 * halo;
+  const int Cp = padded_width(C);                  // rows C .. Cp - 1 of S1 and Hs are 0
   float* As = reinterpret_cast<float*>(smem_raw);  // KC x LA
-  float* S1 = As + KC * LA;                        // C x ls
-  float* Hs = S1 + (size_t)C * ls;                 // C x TT
+  float* S1 = As + KC * LA;                        // Cp x ls (SLICED: KC x ls)
+  float* Hs = S1 + (size_t)(SLICED ? KC : Cp) * ls;  // Cp x TT
 
   const int t0 = blockIdx.x * TT;
   const float* xb = x + (size_t)blockIdx.y * C * Tn;
   float* ob = out + (size_t)blockIdx.y * C * Tn;
   const int tg = threadIdx.x % 16, cg = threadIdx.x / 16;
 
-  for (int e = threadIdx.x; e < C * ls; e += THREADS) {
-    const int c = e / ls, u = e % ls, t = t0 - halo + u;
-    S1[e] = (t >= 0 && t < Tn) ? snake_exact(xb[(size_t)c * Tn + t], a1[c]) : 0.f;
-  }
+  if (!SLICED) stage_snake1(S1, xb, a1, 0, Cp, C, Tn, t0, halo, ls);
 
   // dilated k=7 conv: W7 is (7, C, C); tap j reads S1 shifted by j*dil
   for (int co0 = 0; co0 < C; co0 += CO) {
@@ -563,12 +598,22 @@ res_unit_fma_kernel(const float* __restrict__ x, const float* __restrict__ w7,
 #pragma unroll
       for (int i = 0; i < TR; ++i) acc[r][i] = bias;
     }
-    for (int j = 0; j < KSIZE; ++j)
-      fma_gemm<TR>(w7 + (size_t)j * C * C, C, C, S1 + j * dil, ls, co0, C, As, acc);
+    if (SLICED) {
+      for (int ci0 = 0; ci0 < Cp; ci0 += KC) {
+        __syncthreads();  // every thread is done with the previous slice
+        stage_snake1(S1, xb, a1, ci0, KC, C, Tn, t0, halo, ls);
+        for (int j = 0; j < KSIZE; ++j)  // fma_gemm syncs before it reads S1
+          fma_gemm<TR>(w7 + (size_t)j * C * C + ci0, C, KC, S1 + j * dil, ls, co0, C,
+                       C - ci0, As, acc);
+      }
+    } else {
+      for (int j = 0; j < KSIZE; ++j)
+        fma_gemm<TR>(w7 + (size_t)j * C * C, C, Cp, S1 + j * dil, ls, co0, C, C, As, acc);
+    }
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int co = co0 + cg * 4 + r;
-      if (co < C) {
+      if (co < Cp) {  // rows past C: exact zeros
 #pragma unroll
         for (int i = 0; i < TR; ++i) Hs[co * TT + tg + 16 * i] = acc[r][i];
       }
@@ -580,7 +625,7 @@ res_unit_fma_kernel(const float* __restrict__ x, const float* __restrict__ w7,
   // 1x1 conv + bias + residual
   for (int co0 = 0; co0 < C; co0 += CO) {
     float acc[4][TR] = {};
-    fma_gemm<TR>(w1, C, C, Hs, TT, co0, C, As, acc);
+    fma_gemm<TR>(w1, C, Cp, Hs, TT, co0, C, C, As, acc);
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int co = co0 + cg * 4 + r;
@@ -597,50 +642,59 @@ res_unit_fma_kernel(const float* __restrict__ x, const float* __restrict__ w7,
   }
 }
 
-size_t fma_smem_bytes(int C, int TT, int dil) {
-  return sizeof(float) * ((size_t)KC * LA + (size_t)C * (2 * TT + 6 * dil));
+size_t fma_smem_bytes(int C, int TT, int dil, bool sliced) {
+  const size_t s1_rows = sliced ? KC : padded_width(C);
+  return sizeof(float) *
+         ((size_t)KC * LA + s1_rows * (TT + 6 * dil) + (size_t)padded_width(C) * TT);
 }
 
 // ---------------------------------------------------------------- host side
 
+// The time tile of the kernel that stages every channel's s1; where none
+// fits, minus the tile of the SLICED variant; 0 where neither fits.
 int pick_tile_fp32(int C, int dil) {
   for (int tt : {64, 32, 16})
-    if (fma_smem_bytes(C, tt, dil) <= kMaxSmem) return tt;
+    if (fma_smem_bytes(C, tt, dil, false) <= kMaxSmem) return tt;
+  for (int tt : {64, 32, 16})
+    if (fma_smem_bytes(C, tt, dil, true) <= kMaxSmem) return -tt;
   return 0;
 }
 
-template <int TT_>
-int launch_fp32(size_t smem, const void* x, const void* w7, const float* b7, const void* w1,
+template <int TT_, bool SLICED>
+int launch_fp32(const void* x, const void* w7, const float* b7, const void* w1,
                 const float* b1, const float* a1, const float* a2, void* out, int B, int C,
                 int Tn, int dil, cudaStream_t stream) {
   dim3 grid((Tn + TT_ - 1) / TT_, B);
-  return sa::launch(res_unit_fma_kernel<TT_>, grid, dim3(THREADS), smem, stream, (const float*)x,
+  return sa::launch(res_unit_fma_kernel<TT_, SLICED>, grid, dim3(THREADS),
+                    fma_smem_bytes(C, TT_, dil, SLICED), stream, (const float*)x,
                     (const float*)w7, b7, (const float*)w1, b1, a1, a2, (float*)out, C, Tn, dil);
 }
 
 }  // namespace
 
 // What the kernel takes for (C, dilation, dtype): in bf16 the output-channel
-// chunk (C itself when one fused kernel does the unit), in fp32 the time
-// tile; 0 when it cannot take the shape.
+// chunk (the padded width itself when one fused kernel does the unit), in
+// fp32 the time tile (negative for the SLICED variant); 0 when it cannot
+// take the shape.
 extern "C" int sa_res_unit_plan(int C, int dil, int dtype) {
-  if (dil < 1) return 0;
+  if (dil < 1 || C < 1) return 0;
   if (dtype == 1) {
     const int nc = bf16_chunk(C);
-    return nc != 0 && staged_rows(3 * dil) <= 256 &&
-                   wgmma_smem_bytes(nc, nc == C ? FUSED : CONV7, 2, 3 * dil) + 1024 <= kMaxSmem
+    const int mode = nc == padded_width(C) ? FUSED : CONV7;
+    return staged_rows(3 * dil) <= 256 && wgmma_smem_bytes(nc, mode, 2, 3 * dil) + 1024 <= kMaxSmem
                ? nc
                : 0;
   }
-  return C % KC == 0 ? pick_tile_fp32(C, dil) : 0;
+  return pick_tile_fp32(C, dil);
 }
 
 // bf16: x, out: (B, C, T) contiguous, T a multiple of 8 (rows of 16-byte
 // multiples for TMA; the wrapper pads others), x 16-byte aligned; w: the tiled weights (see
-// ops/fused_conv.py::tile_weights, with the chunk sa_res_unit_plan gives);
-// b7, b1: (C,) float32; a1, a2: (C, 2) float32, each channel's (alpha,
-// 1 / (alpha + 1e-9)); s2: a (B, C, T) bf16 scratch when the chunk is not C
-// (else unused).
+// ops/fused_conv.py::tile_weights, with the chunk sa_res_unit_plan gives,
+// Cp = C rounded up to a multiple of 32 output rows); b7, b1: (Cp,) float32,
+// zero past C; a1, a2: (Cp, 2) float32, each channel's (alpha, 1 / (alpha +
+// 1e-9)), alpha 1 past C; s2: a (B, C, T) bf16 scratch when the chunk is not
+// Cp (else unused).
 extern "C" int sa_fused_residual_unit_bf16(const void* x, const void* w, const float* b7,
                                            const float* b1, const float* a1, const float* a2,
                                            void* s2, void* out, int B, int C, int T, int dil,
@@ -654,32 +708,44 @@ extern "C" int sa_fused_residual_unit_bf16(const void* x, const void* w, const f
   a.C = C;
   a.T = T;
   a.dil = dil;
-  a.w1_first = (C / nc) * ((C + KCH - 1) / KCH) * KSIZE;
+  const int Cp = padded_width(C);
+  a.w1_first = (Cp / nc) * ((C + KCH - 1) / KCH) * KSIZE;
   cudaStream_t s = (cudaStream_t)stream;
   const bf16 *xb = (const bf16*)x;
   bf16 *sb = (bf16*)s2, *ob = (bf16*)out;
-  if (nc == C) {  // one fused kernel
+  const bool pad = Cp != C;
+  if (nc == Cp) {  // one fused kernel
     a.src = xb; a.x = xb; a.bias = b7; a.b1 = b1; a.dst = ob;
     const int halo = 3 * dil;
+    if (pad) {  // bf16_chunk gives at most 128
+      switch (nc) {
+        case 32: return launch_wgmma<32, FUSED, true>(a, B, halo, s);
+        case 64: return launch_wgmma<64, FUSED, true>(a, B, halo, s);
+        case 96: return launch_wgmma<96, FUSED, true>(a, B, halo, s);
+        default: return launch_wgmma<128, FUSED, true>(a, B, halo, s);
+      }
+    }
     switch (nc) {
-      case 32: return launch_wgmma<32, FUSED>(a, B, halo, s);
-      case 64: return launch_wgmma<64, FUSED>(a, B, halo, s);
-      case 96: return launch_wgmma<96, FUSED>(a, B, halo, s);
-      case 128: return launch_wgmma<128, FUSED>(a, B, halo, s);
-      case 192: return launch_wgmma<192, FUSED>(a, B, halo, s);
-      default: return launch_wgmma<256, FUSED>(a, B, halo, s);
+      case 32: return launch_wgmma<32, FUSED, false>(a, B, halo, s);
+      case 64: return launch_wgmma<64, FUSED, false>(a, B, halo, s);
+      case 96: return launch_wgmma<96, FUSED, false>(a, B, halo, s);
+      case 128: return launch_wgmma<128, FUSED, false>(a, B, halo, s);
+      case 192: return launch_wgmma<192, FUSED, false>(a, B, halo, s);
+      default: return launch_wgmma<256, FUSED, false>(a, B, halo, s);
     }
   }
+  if (pad) return run_split<32, true>(a, xb, b7, b1, sb, ob, B, s);  // bf16_chunk gives 32
   switch (nc) {
-    case 32: return run_split<32>(a, xb, b7, b1, sb, ob, B, s);
-    case 64: return run_split<64>(a, xb, b7, b1, sb, ob, B, s);
-    case 96: return run_split<96>(a, xb, b7, b1, sb, ob, B, s);
-    default: return run_split<128>(a, xb, b7, b1, sb, ob, B, s);
+    case 32: return run_split<32, false>(a, xb, b7, b1, sb, ob, B, s);
+    case 64: return run_split<64, false>(a, xb, b7, b1, sb, ob, B, s);
+    case 96: return run_split<96, false>(a, xb, b7, b1, sb, ob, B, s);
+    default: return run_split<128, false>(a, xb, b7, b1, sb, ob, B, s);
   }
 }
 
 // fp32: x, out: (B, C, T) contiguous; w7: (7, C_out, C_in); w1: (C_out,
-// C_in); b7, b1, a1, a2: (C,). C must be a multiple of 32.
+// C_in); b7, b1, a1, a2: (C,). Any C >= 1 whose tile fits shared memory
+// (with h of every channel in it: C up to ~3,300 at dilation 9).
 extern "C" int sa_fused_residual_unit(const void* x, const void* w7, const float* b7,
                                       const void* w1, const float* b1, const float* a1,
                                       const float* a2, void* out, int B, int C, int T,
@@ -687,8 +753,12 @@ extern "C" int sa_fused_residual_unit(const void* x, const void* w7, const float
   const int tt = sa_res_unit_plan(C, dil, 0);
   if (tt == 0 || T < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = fma_smem_bytes(C, tt, dil);
-  if (tt == 64) return launch_fp32<64>(smem, x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
-  if (tt == 32) return launch_fp32<32>(smem, x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
-  return launch_fp32<16>(smem, x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
+  switch (tt) {
+    case 64: return launch_fp32<64, false>(x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
+    case 32: return launch_fp32<32, false>(x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
+    case 16: return launch_fp32<16, false>(x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
+    case -64: return launch_fp32<64, true>(x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
+    case -32: return launch_fp32<32, true>(x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
+    default: return launch_fp32<16, true>(x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
+  }
 }

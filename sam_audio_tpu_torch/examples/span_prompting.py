@@ -32,12 +32,10 @@ def make_demo_model(device):
         # 128-wide heads: the DiT's attention takes the fused kernel on the card
         transformer=TransformerConfig(dim=256, n_heads=2, n_layers=2, dropout=0.0,
                                       context_dim=256, out_channels=256),
-        # the 48 kHz / hop-1920 codec's layout with narrow layers, so that the
-        # demo runs in seconds (a real snapshot has the full DAC-VAE): on the
-        # card the narrowest widths its residual-unit kernel takes (multiples
-        # of 32), on the CPU the JAX example's
-        audio_codec=(DACVAEConfig(encoder_dim=32, decoder_dim=512) if on_card
-                     else DACVAEConfig(encoder_dim=8, decoder_dim=64)),
+        # the 48 kHz / hop-1920 codec's layout with the JAX example's narrow
+        # layers, so that the demo runs in seconds (a real snapshot has the
+        # full DAC-VAE)
+        audio_codec=DACVAEConfig(encoder_dim=8, decoder_dim=64),
         span_predictor=None,
         # bf16 on the card; PyTorch's CPU kernels are faster in fp32
         compute_dtype="bfloat16" if on_card else "float32",

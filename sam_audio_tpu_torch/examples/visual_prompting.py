@@ -41,11 +41,9 @@ def make_demo_model(device):
         # snapshot uses PE-Core-L14-336
         vision_encoder=PerceptionEncoderConfig(dim=64, width=64, vit_layers=2, vit_heads=2,
                                                image_size=56, patch_size=14),
-        # the 48 kHz / hop-1920 codec's layout with narrow layers: on the card
-        # the narrowest widths its residual-unit kernel takes (multiples of
-        # 32), on the CPU the JAX example's
-        audio_codec=(DACVAEConfig(encoder_dim=32, decoder_dim=512) if on_card
-                     else DACVAEConfig(encoder_dim=8, decoder_dim=64)),
+        # the 48 kHz / hop-1920 codec's layout with the JAX example's narrow
+        # layers
+        audio_codec=DACVAEConfig(encoder_dim=8, decoder_dim=64),
         span_predictor=None,
         # bf16 on the card; PyTorch's CPU kernels are faster in fp32
         compute_dtype="bfloat16" if on_card else "float32",

@@ -22,12 +22,19 @@ that every tap's row shift can address; the weights are tiled once per unit
 Up to 256 channels one kernel does the whole unit, s2 kept in registers for
 the 1x1 product; wider units run a k7 kernel into a scratch s2 and a 1x1
 kernel, over chunks of output channels (`bf16_chunk`). In fp32 the products
-are FMAs. A ragged T is padded to a multiple of 8 for the bf16 kernel (zeros
-past T are the conv's own padding).
+are FMAs over a time tile that holds every channel's snaked input; where
+that does not fit (the decoder's 768 channels at dilation 9), a variant
+stages 32 input channels at a time. A ragged T is padded to a multiple of 8 for the bf16 kernel (zeros
+past T are the conv's own padding). Any C >= 1 runs: both kernels compute
+`padded_width(C)` channels (a multiple of 32), the extra ones exact zeros
+(zero weight rows and columns, zero biases, alphas of 1, zeros staged), and
+store only the first C; the JAX examples' demo codec (units of 4 to 64
+channels) and `tiny_test_config`'s (4 and 8) take this route.
 
 `fused_residual_unit` takes the plain PyTorch version for CPU tensors and
-launches the kernel for CUDA tensors (raising if it cannot, e.g. C not a
-multiple of 32); it counts its launches in `fused_residual_unit.launches`.
+launches the kernel for CUDA tensors (raising if it cannot, e.g. a dilation
+whose halo does not fit); it counts its launches in
+`fused_residual_unit.launches`.
 The kernel has no gradient (the codec is frozen in training, and the JAX
 package differentiates no codec): on the card the wrapper raises
 RuntimeError when autograd records and an input requires grad.
@@ -77,14 +84,24 @@ def fused_residual_unit_plain(x, w7, b7, w1, b1, a1, a2, dilation: int):
     return (out + x.float()).to(dtype)
 
 
+def padded_width(c: int) -> int:
+    """The channels the kernels compute for width c: c rounded up to a
+    multiple of 32 (c itself when it is one)."""
+    return -(-c // 32) * 32
+
+
 def bf16_chunk(c: int) -> int:
     """Output channels the bf16 kernel computes per work item for width c: c
     itself for c = 32, 64, 96, 128, 192 or 256 (the whole unit in one kernel,
     s2 kept in registers), else the widest of 128 / 96 / 64 / 32 dividing c (a
-    k7 kernel writes s2 to a scratch, a 1x1 kernel reads it). 0 when c is not
-    a multiple of 32. Mirrors bf16_chunk in csrc/fused_conv.cu."""
-    if c % 32 or c < 32:
+    k7 kernel writes s2 to a scratch, a 1x1 kernel reads it). A c that is not
+    a multiple of 32 runs padded: fused on padded_width(c) up to 128, else
+    split at 32. 0 when c < 1. Mirrors bf16_chunk in csrc/fused_conv.cu."""
+    if c < 1:
         return 0
+    cp = padded_width(c)
+    if cp != c:
+        return cp if cp <= 128 else 32
     if c <= 128 or c in (192, 256):
         return c
     return next(nc for nc in (128, 96, 64, 32) if c % nc == 0)
@@ -105,14 +122,15 @@ def tile_weights(w7: torch.Tensor, w1: torch.Tensor, nc: int, nc1: int) -> torch
     slice per input chunk. A slice is nc (or nc1) rows (output channels) x 64
     input channels (zero past C), each row 128 bytes with the 128-byte
     swizzle of a wgmma operand: the 16-byte piece p of row r is stored at
-    piece p ^ (r % 8). w7: (7, C_out, C_in), w1: (C_out, C_in). Returns the
-    slices as one flat bf16 tensor."""
+    piece p ^ (r % 8). The output rows run to padded_width(C), zero past C.
+    w7: (7, C_out, C_in), w1: (C_out, C_in). Returns the slices as one flat
+    bf16 tensor."""
     taps, c, _ = w7.shape
-    nci = -(-c // 64)
+    cp, nci = padded_width(c), -(-c // 64)
 
     def slices(w, n):   # (taps, C_out, C_in) -> (chunks * nci * taps, n, 64), swizzled
-        w = F.pad(w.to(torch.bfloat16), (0, nci * 64 - c))
-        w = w.reshape(w.shape[0], c // n, n, nci, 64).permute(1, 3, 0, 2, 4).reshape(-1, n, 8, 8)
+        w = F.pad(w.to(torch.bfloat16), (0, nci * 64 - c, 0, cp - c))
+        w = w.reshape(w.shape[0], cp // n, n, nci, 64).permute(1, 3, 0, 2, 4).reshape(-1, n, 8, 8)
         src = torch.arange(8, device=w.device)[None, :] ^ (torch.arange(n, device=w.device) % 8)[:, None]
         return torch.gather(w, 2, src[None, :, :, None].expand(w.shape[0], n, 8, 8))
 
@@ -135,7 +153,8 @@ def _weights_version(params):
 
 def prepared_operands(params, compute_dtype):
     """(weights, b7, b1, a1, a2) for the kernel, made once per unit and
-    dtype: in bf16 the tiled slices (`tile_weights`) and each alpha as (C, 2)
+    dtype: in bf16 the tiled slices (`tile_weights`), the biases padded to
+    padded_width(C) with zeros and each alpha, padded with ones, as (C_pad, 2)
     pairs (alpha, 1 / (alpha + 1e-9)); in fp32 (w7, w1) and the alphas as
     `residual_unit_operands` gives them; all fp32 but the weights."""
     key = params["conv1"]["weight"]
@@ -153,10 +172,12 @@ def prepared_operands(params, compute_dtype):
     _, w7, b7, w1, b1, a1, a2 = residual_unit_operands(
         params, torch.empty((1, c, 0), device=key.device), compute_dtype)
     if compute_dtype == torch.bfloat16:
-        nc = bf16_chunk(c)
-        weights = tile_weights(w7, w1, nc, conv1_chunk(c)) if nc else None
+        weights = tile_weights(w7, w1, bf16_chunk(c), conv1_chunk(c))
+        pad = padded_width(c) - c
+        b7, b1 = (F.pad(b, (0, pad)) for b in (b7, b1))
         # (alpha, 1 / (alpha + 1e-9)) a channel: the snake's division, once
-        a1, a2 = (torch.stack([a, 1.0 / (a + 1e-9)], -1).contiguous() for a in (a1, a2))
+        a1, a2 = (torch.stack([a, 1.0 / (a + 1e-9)], -1).contiguous()
+                  for a in (F.pad(a, (0, pad), value=1.0) for a in (a1, a2)))
     else:
         weights = (w7, w1)
     ops = (weights, b7, b1, a1, a2)
@@ -208,7 +229,7 @@ def fused_residual_unit(params, x: torch.Tensor, dilation: int,
         tp = -(-t // 8) * 8
         xin = _build.aligned16(xc if tp == t else F.pad(xc, (0, tp - t)))
         out = torch.empty_like(xin)
-        s2 = None if bf16_chunk(c) == c else torch.empty_like(xin)
+        s2 = None if bf16_chunk(c) == padded_width(c) else torch.empty_like(xin)
         err = lib.sa_fused_residual_unit_bf16(
             P(xin), P(weights), P(b7), P(b1), P(a1), P(a2), None if s2 is None else P(s2),
             P(out), b, c, tp, dilation, _build.stream_of(xc))

@@ -1,9 +1,10 @@
-"""Host-side batch planning for the serving layer.
+"""The host runtime.
 
-Counterpart of the numpy path of sam_audio_tpu/runtime/native.py
-(`plan_batches`, :172-213). The JAX package also has an optional C++ host
-library (runtime/*.cc) with the same algorithm; the port keeps only the
-numpy version.
+`plan_batches` here is the serving layer's batch planner, in plain Python
+(the numpy path of sam_audio_tpu/runtime/native.py). `native` holds the C++
+host library (built with g++ at first use): WAV I/O, which `load_audio` uses
+for float and extensible WAVs, and, for parity with the JAX package, a
+resampler and a second planner that no serving path calls.
 """
 
 from __future__ import annotations
@@ -36,3 +37,6 @@ def plan_batches(lengths: Sequence[int], hop: int, bucket_steps: int,
         batches.append(group)
         buckets.append(b)
     return batches, buckets
+
+
+__all__ = ["plan_batches"]

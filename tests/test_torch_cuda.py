@@ -176,10 +176,12 @@ def test_cuda_residual_unit_launches_kernel(cuda, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 8])
 @pytest.mark.parametrize("dilation", [1, 3, 9])
-@pytest.mark.parametrize("c", [64, 96, 128, 192, 256, 384, 512, 768])
+@pytest.mark.parametrize("c", [64, 96, 128, 192, 256, 384, 512, 768, 4, 8, 16, 24, 48, 80, 200])
 def test_cuda_residual_unit_widths_bf16(cuda, c, dilation, b):
     """Every width of the codec, fused (C <= 128) and split over output-channel
-    chunks, at a ragged T; two runs give the same bits."""
+    chunks, at a ragged T; widths that are not multiples of 32 (the JAX
+    examples' and tiny_test_config's codecs) padded to the next one; two runs
+    give the same bits."""
     p = _unit(cuda, c, c + dilation)
     x = torch.randn(b, c, 3001, generator=torch.Generator(device=cuda).manual_seed(c),
                     device=cuda).to(torch.bfloat16)
@@ -191,8 +193,10 @@ def test_cuda_residual_unit_widths_bf16(cuda, c, dilation, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dilation", [1, 3, 9])
-@pytest.mark.parametrize("c", [64, 192, 512])
+@pytest.mark.parametrize("c", [64, 192, 512, 4, 8, 16, 24, 48, 80, 384, 768, 1000])
 def test_cuda_residual_unit_widths_fp32(cuda, c, dilation):
+    """768 and 1000 channels at dilation 9 (and 1000 at 3) take the variant
+    that stages 32 input channels at a time."""
     p = _unit(cuda, c, c + dilation)
     x = torch.randn(2, c, 3001, generator=torch.Generator(device=cuda).manual_seed(c),
                     device=cuda)
@@ -216,8 +220,10 @@ def test_cuda_residual_unit_shorter_than_halo(cuda, dtype, tol, c):
 
 @pytest.mark.cuda
 def test_cuda_residual_unit_refuses_what_it_cannot_take(cuda):
+    """Any width runs; a dilation whose halo passes the bf16 kernel's 256
+    staged rows does not."""
     with pytest.raises(ValueError):
-        fused_residual_unit(_unit(cuda, 40, 1), torch.randn(1, 40, 64, device=cuda), 1)
+        fused_residual_unit(_unit(cuda, 40, 1), torch.randn(1, 40, 64, device=cuda), 27)
 
 
 def _int4(dev, out, din, seed):

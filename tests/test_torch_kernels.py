@@ -34,6 +34,8 @@ from sam_audio_tpu_torch.ops.fused_conv import (
     bf16_chunk,
     conv1_chunk,
     fused_residual_unit,
+    fused_residual_unit_plain,
+    padded_width,
     prepared_operands,
     residual_unit_operands,
     tile_weights,
@@ -181,11 +183,16 @@ def test_split_key_softmax_matches_plain(t):
 @pytest.mark.parametrize("c,nc,nc1", [(32, 32, 32), (64, 64, 64), (96, 96, 96),
                                       (128, 128, 128), (192, 192, 96), (256, 256, 128),
                                       (384, 128, 128), (512, 128, 128), (768, 128, 128),
-                                      (160, 32, 32), (224, 32, 32), (40, 0, 0), (16, 0, 0)])
+                                      (160, 32, 32), (224, 32, 32), (40, 64, 64), (16, 32, 32),
+                                      (4, 32, 32), (8, 32, 32), (12, 32, 32), (24, 32, 32),
+                                      (48, 64, 64), (80, 96, 96), (170, 32, 32),
+                                      (200, 32, 32), (300, 32, 32), (0, 0, 0)])
 def test_bf16_chunk_plan(c, nc, nc1):
     """One fused kernel (chunk = C) for the widths it has products for, its
     1x1 in two passes above 128; other units split into k7 and 1x1 kernels
-    over output-channel chunks that divide C."""
+    over output-channel chunks that divide C. A width that is not a multiple
+    of 32 runs as the next multiple of 32: fused up to 128, else split at
+    32."""
     assert bf16_chunk(c) == nc
     assert conv1_chunk(c) == nc1
 
@@ -196,31 +203,75 @@ def _unswizzle(tiles, nc):
     return torch.gather(pieces, 2, src[None, :, :, None].expand_as(pieces)).reshape(-1, nc, 64)
 
 
-@pytest.mark.parametrize("c", [32, 96, 192, 256, 384])
+def _untile(tiles, c):
+    """tile_weights inverted: (w7 (7, cp, nci * 64), w1 (cp, nci * 64)) as
+    float, cp = padded_width(c)."""
+    nc, nc1, cp, nci = bf16_chunk(c), conv1_chunk(c), padded_width(c), -(-c // 64)
+    n7 = (cp // nc) * nci * 7
+    part7 = _unswizzle(tiles[:n7 * nc * 64], nc).float()
+    part1 = _unswizzle(tiles[n7 * nc * 64:], nc1).float()
+    w7 = part7.reshape(cp // nc, nci, 7, nc, 64).permute(2, 0, 3, 1, 4).reshape(7, cp, nci * 64)
+    w1 = part1.reshape(cp // nc1, nci, nc1, 64).permute(0, 2, 1, 3).reshape(cp, nci * 64)
+    return w7, w1
+
+
+@pytest.mark.parametrize("c", [32, 96, 192, 256, 384, 4, 48, 80, 200])
 def test_tile_weights_order_and_swizzle(c):
     """Slice ((n * nci + kc) * 7 + j) is tap j, output channels of k7 chunk n,
     input channels 64 kc .. 64 kc + 63 (zero past C); the 1x1 slices follow by
-    1x1 chunks; piece p of row r is stored at p ^ (r % 8)."""
+    1x1 chunks; piece p of row r is stored at p ^ (r % 8). The output rows run
+    to padded_width(C), zero past C."""
     g = torch.Generator().manual_seed(c)
     w7, w1 = torch.randn(7, c, c, generator=g), torch.randn(c, c, generator=g)
     nc, nc1 = bf16_chunk(c), conv1_chunk(c)
-    nci = -(-c // 64)
+    cp, nci = padded_width(c), -(-c // 64)
     tiles = tile_weights(w7, w1, nc, nc1)
-    n7 = (c // nc) * nci * 7
+    n7 = (cp // nc) * nci * 7
     assert tiles.dtype == torch.bfloat16
-    assert tiles.numel() == n7 * nc * 64 + (c // nc1) * nci * nc1 * 64
+    assert tiles.numel() == n7 * nc * 64 + (cp // nc1) * nci * nc1 * 64
     part7 = _unswizzle(tiles[:n7 * nc * 64], nc).float()
     part1 = _unswizzle(tiles[n7 * nc * 64:], nc1).float()
-    pad7 = torch.nn.functional.pad(w7, (0, nci * 64 - c)).bfloat16().float()
-    pad1 = torch.nn.functional.pad(w1, (0, nci * 64 - c)).bfloat16().float()
+    pad7 = torch.nn.functional.pad(w7, (0, nci * 64 - c, 0, cp - c)).bfloat16().float()
+    pad1 = torch.nn.functional.pad(w1, (0, nci * 64 - c, 0, cp - c)).bfloat16().float()
     for kc in range(nci):
         cols = slice(64 * kc, 64 * kc + 64)
-        for n in range(c // nc):
+        for n in range(cp // nc):
             for j in range(7):
                 assert torch.equal(part7[(n * nci + kc) * 7 + j],
                                    pad7[j, n * nc:(n + 1) * nc, cols])
-        for n in range(c // nc1):
+        for n in range(cp // nc1):
             assert torch.equal(part1[n * nci + kc], pad1[n * nc1:(n + 1) * nc1, cols])
+    u7, u1 = _untile(tiles, c)
+    assert torch.equal(u7, pad7) and torch.equal(u1, pad1)
+
+
+@pytest.mark.parametrize("c", [4, 12, 48, 80, 200])
+@pytest.mark.parametrize("dilation", [1, 9])
+def test_padded_operands_compute_the_unit(c, dilation):
+    """What the bf16 kernel is given for a width that is not a multiple of
+    32 (the tiles, biases and alpha pairs of prepared_operands, padded to
+    padded_width(C)) computes the unit on C channels: the plain version on
+    the padded operands, with x padded by zero channels, gives the plain
+    version's result in its first C rows and exact zeros in the rest (fp32
+    over the bf16-rounded weights, 1e-5)."""
+    p = params_from_numpy(_unit_params(c, seed=c + dilation))
+    tiles, b7, b1, a1, a2 = prepared_operands(p, torch.bfloat16)
+    cp = padded_width(c)
+    assert b7.shape == b1.shape == (cp,) and a1.shape == a2.shape == (cp, 2)
+    assert not b7[c:].any() and not b1[c:].any()
+    assert torch.equal(a1[c:, 0], torch.ones(cp - c)) and torch.equal(a2[c:, 0], torch.ones(cp - c))
+    w7, w1 = _untile(tiles, c)
+    assert not w7[:, c:].any() and not w7[:, :, c:].any()
+    assert not w1[c:].any() and not w1[:, c:].any()
+    x = torch.tensor(np.random.RandomState(c).randn(2, c, 77).astype(np.float32))
+    xp = torch.nn.functional.pad(x, (0, 0, 0, cp - c))
+    padded = fused_residual_unit_plain(xp, w7[:, :, :cp].contiguous(), b7, w1[:, :cp].contiguous(),
+                                       b1, a1[:, 0], a2[:, 0], dilation)
+    _, _, b7c, _, b1c, a1c, a2c = residual_unit_operands(p, x, torch.float32)
+    ref = fused_residual_unit_plain(x, w7[:, :c, :c].contiguous(), b7c, w1[:c, :c].contiguous(),
+                                    b1c, a1c, a2c, dilation)
+    assert not padded[:, c:].any()
+    np.testing.assert_allclose(padded[:, :c].numpy(), ref.numpy(), rtol=1e-5, atol=1e-5)
 
 
 def test_prepared_operands_made_once_per_unit():

@@ -145,3 +145,25 @@ def test_dacvae_encode_decode_match():
     assert out.shape == ref.shape == (2, 1, 48)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
     assert tdac.feature_idx_to_wav_idx(7, 8, 8000) == jdac.feature_idx_to_wav_idx(7, 8, 8000)
+
+
+def test_dacvae_at_the_jax_examples_widths_matches():
+    """The JAX examples' demo codec (48 kHz, hop 1920, encoder 8 / decoder 64:
+    residual units of 8, 16, 32, 64 and 32, 16, 8, 4 channels, the widths
+    that are not multiples of 32 included) through the port's encode and
+    decode against JAX's default codec."""
+    jcfg = jax_tiny_config().audio_codec.__class__(encoder_dim=8, decoder_dim=64)
+    tcfg_codec = tcfg.DACVAEConfig(encoder_dim=8, decoder_dim=64)
+    assert jcfg.hop_length == tcfg_codec.hop_length == 1920
+    p = _np(jdac.dacvae_init(jax.random.PRNGKey(6), jcfg))
+    tp = params_from_numpy(p)
+    wav = np.random.RandomState(7).randn(1, 1, 2 * 1920 + 100).astype(np.float32) * 0.3
+    ref = jdac.encode(p, wav, jcfg)
+    out = tdac.encode(tp, torch.tensor(wav), tcfg_codec)
+    assert out.shape == ref.shape == (1, jcfg.codebook_dim, 3)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    z = np.random.RandomState(8).randn(1, jcfg.codebook_dim, 2).astype(np.float32)
+    ref = jdac.decode(p, z, jcfg)
+    out = tdac.decode(tp, torch.tensor(z), tcfg_codec)
+    assert out.shape == ref.shape == (1, 1, 2 * 1920)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
