@@ -17,13 +17,19 @@ Phases (any failure exits non-zero):
   3. kernels — hold each kernel against its plain PyTorch version on the card
                (bf16 at the main-path shapes, plus an fp32 case; padded and
                fully masked rows for the attention kernels, dilations 1/3/9
-               for the residual unit (and fp32 at the decoder's 768
-               channels, whose dilation 9 takes the sliced variant),
-               250/2000/14 tokens for the int4
+               for the residual unit (and fp32 at every main-path shape,
+               the 36 launches of an fp32 separate, within 1e-4 and two
+               runs bit-equal), 250/2000/14 tokens for the int4
                product, whose two runs must give the same bits); time kernel,
                plain version and one PyTorch library call as a yardstick, the
                kernel and the library call also with the host out of the
                window (`device_ms`: a CUDA graph of the calls, replayed).
+               Each kernel's fp32 body is also timed at its paths' shapes
+               (kernel 1 at B = 1, 4, 8 x 250 x 16 heads; kernel 2 at 1125
+               keys; kernel 3 at the 24 main shapes; kernel 4 at 250 tokens)
+               beside its plain version, the library call in fp32 (TF32
+               off) and two labelled bounds: as fp32 FMAs at 67 TFLOP/s and
+               as the three TF32 products of split TF32 at 495.
                Kernels 1 and 2 under autograd (their Functions: the kernel
                forward, the plain version's VJP) at the training shapes
                (kernel 1: B=4, T=250; kernel 2: B=1, T=1125; bf16 and fp32):
@@ -226,6 +232,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12       # H100 SXM fp32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12      # H100 SXM dense TF32 tensor-core FLOP/s
 HBM_BPS = 3.35e12       # H100 SXM HBM3 bytes/s
 DEVICE = "cuda"
 MIXTURE_SECONDS = 10.0
@@ -246,6 +253,17 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16):
     t_ops = flops / peak
     t_bytes = nbytes / HBM_BPS
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def fp32_bounds(flops: float, nbytes: float) -> dict:
+    """The two bounds of an fp32 body, labelled: its work as fp32 FMAs at
+    PEAK_FP32 (the parent bodies' arithmetic), and as the three TF32
+    tensor-core products of split TF32 at PEAK_TF32 (the redesigned bodies',
+    which can run under the first); each against the bytes at HBM_BPS."""
+    fma, fma_by = bound_ms(flops, nbytes, PEAK_FP32)
+    tf32, tf32_by = bound_ms(3 * flops, nbytes, PEAK_TF32)
+    return {"bound_fma_ms": fma, "bound_fma_by": fma_by, "bound_3xtf32_ms": tf32,
+            "bound_3xtf32_by": tf32_by}
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 2) -> float:
@@ -394,7 +412,9 @@ def check_fused_attention(results):
     extra = {}
     for what, b, dtype, elem, peak in (("bf16 B=8", 8, torch.bfloat16, 2, PEAK_BF16),
                                        ("bf16 B=4", 4, torch.bfloat16, 2, PEAK_BF16),
-                                       ("fp32 B=1", 1, torch.float32, 4, PEAK_FP32)):
+                                       ("fp32 B=1", 1, torch.float32, 4, PEAK_FP32),
+                                       ("fp32 B=4", 4, torch.float32, 4, PEAK_FP32),
+                                       ("fp32 B=8", 8, torch.float32, 4, PEAK_FP32)):
         q, k, v, mask = _attn_inputs(b, t, h, d, dtype, seed=2, masked_rows=False)
         xms = time_ms(lambda: fused_glue_attention(q, k, v, qw, kw, cos, sin, mask))
         xdev = device_ms(lambda: fused_glue_attention(q, k, v, qw, kw, cos, sin, mask))
@@ -402,12 +422,24 @@ def check_fused_attention(results):
         kn = _norm_rope(k, kw, cos, sin, 1e-5).transpose(1, 2)
         vt = v.transpose(1, 2)
         xlib = device_ms(lambda: F.scaled_dot_product_attention(qn, kn, vt))
-        xb, xby = bound_ms(b * flops, b * 4 * t * h * d * elem + 2 * d * 4 + t * d * 4 + b * t,
-                           peak)
+        nbytes = b * 4 * t * h * d * elem + 2 * d * 4 + t * d * 4 + b * t
+        xb, xby = bound_ms(b * flops, nbytes, peak)
         extra[what] = dict(ms=xms, device_ms=xdev, library_device_ms=xlib, bound_ms=xb,
                            bound_by=xby)
-        log(f"  ({b}, 250, 16, 128) {dtype}: kernel {xms:.4f} ms (device {xdev:.4f}), SDPA "
-            f"device {xlib:.4f} ms, bound {xb:.5f} ms ({xby})")
+        line = (f"  ({b}, 250, 16, 128) {dtype}: kernel {xms:.4f} ms (device {xdev:.4f}), SDPA "
+                f"device {xlib:.4f} ms, bound {xb:.5f} ms ({xby})")
+        if dtype == torch.float32:
+            # the fp32 body (3xTF32): plain, SDPA with the host, both bounds
+            bounds = fp32_bounds(b * flops, nbytes)
+            extra[what].update(
+                bounds,
+                plain_ms=time_ms(lambda: fused_glue_attention_plain(q, k, v, qw, kw, cos, sin,
+                                                                    mask), iters=5),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(qn, kn, vt)))
+            line += (f"; plain {extra[what]['plain_ms']:.4f} ms, SDPA {extra[what]['library_ms']:.4f}"
+                     f" ms; bound as fp32 FMAs {bounds['bound_fma_ms']:.5f} ms, as 3xTF32 "
+                     f"{bounds['bound_3xtf32_ms']:.5f} ms ({bounds['bound_3xtf32_by']})")
+        log(line)
     results["extra"] = extra
     check_fused_attention_grad(results)
     results.update(name="fused_glue_attention",
@@ -457,6 +489,20 @@ def check_flash_attention(results):
     bms, by = bound_ms(flops, nbytes)
     log(f"  main shape (1, 1125, 16, 128) bf16: kernel {ms:.4f} ms (device {dev:.4f}), plain "
         f"{plain:.4f} ms, SDPA {lib:.4f} ms (device {lib_dev:.4f}), bound {bms:.5f} ms ({by})")
+    # the fp32 body (FMA products): a quantized separate of a direct clip over 40 s
+    q, k, v = (x.float() for x in (q, k, v))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rec = dict(fp32_bounds(flops, 4 * t * h * d * 4 + t),
+               ms=time_ms(lambda: flash_attention(q, k, v, mask)),
+               device_ms=device_ms(lambda: flash_attention(q, k, v, mask)),
+               plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, mask), iters=3),
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+               library_device_ms=device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)))
+    results["fp32"] = {"(1, 1125, 16, 128)": rec}
+    log(f"  (1, 1125, 16, 128) fp32: kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), "
+        f"plain {rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms (device "
+        f"{rec['library_device_ms']:.4f}); bound as fp32 FMAs {rec['bound_fma_ms']:.5f} ms, as "
+        f"3xTF32 {rec['bound_3xtf32_ms']:.5f} ms")
     check_flash_attention_grad(results)
     results.update(name="flash_attention",
                    per_launch=(ms, plain, lib, bms, by, dev, lib_dev),
@@ -577,7 +623,8 @@ def check_fused_conv(results):
         results["fp32_err"] = max(results.get("fp32_err", 0.0),
                                   check_close(f"fp32 C=64 T=3000 dil={dil}", out, ref,
                                               1e-4, 1e-4))
-    results["fp32_decoder_768"] = check_fp32_wide(unit, library_chain, g)
+    results["fp32"] = check_fp32_main(unit, library_chain, g)
+    results["fp32_err"] = max(results["fp32_err"], results["fp32"]["max_abs_err"])
     results["narrow"] = check_narrow_widths(unit, library_chain, g)
     p = unit(64, seed=1)
     xg = torch.randn(1, 64, 3000, generator=g, device=DEVICE, requires_grad=True)
@@ -589,43 +636,67 @@ def check_fused_conv(results):
                    tolerance="bf16 atol 5e-2 + rtol 2e-2; fp32 atol 1e-4 + rtol 1e-4")
 
 
-def check_fp32_wide(unit, library_chain, g):
-    """Kernel 3 in fp32 at the decoder's widest unit (C = 768, T = 3000, B = 1),
-    dilations 1/3/9: at dilation 9 every channel's staged input no longer fits
-    shared memory and the variant that stages 32 input channels at a time runs.
-    Within 1e-4 of the plain version, one launch a call, two runs bit-equal;
-    device ms beside the bound (fp32 FMA peak) and the F.conv1d chain."""
+def check_fp32_main(unit, library_chain, g):
+    """Kernel 3's fp32 body (3xTF32 tensor-core products) at every main-path
+    shape (ENCODER_SHAPES + DECODER_SHAPES, dilations 1/3/9, B = 1: the 36
+    launches of an fp32 separate, the encoder's 12 those of the span
+    predictor's encode): one launch a call, within 1e-4 of the plain
+    version, two runs bit-equal; ms and device ms beside the plain version,
+    the F.conv1d chain (cuDNN, TF32 off) and both bounds (fp32 FMAs, 3xTF32).
+    Returns the per-shape records and the weighted totals."""
     import torch
 
-    from sam_audio_tpu_torch.ops import fused_conv
     from sam_audio_tpu_torch.ops.fused_conv import (
-        fused_residual_unit, fused_residual_unit_plain, residual_unit_operands)
+        fp32_chunk, fused_residual_unit, fused_residual_unit_plain, residual_unit_operands)
 
-    c, t = 768, 3000
-    x = torch.randn(1, c, t, generator=g, device=DEVICE)
-    records = []
-    for dil in (1, 3, 9):
-        p = unit(c, seed=2000 + dil)
-        n = fused_residual_unit.launches
-        out = fused_residual_unit(p, x, dil, torch.float32)
-        require(fused_residual_unit.launches == n + 1, f"fp32 C={c} dil={dil}: no launch")
-        ref = fused_residual_unit_plain(*residual_unit_operands(p, x, torch.float32), dil)
-        torch.cuda.synchronize()
-        err = check_close(f"fp32 C={c} T={t} dil={dil}", out, ref, 1e-4, 1e-4)
-        require(torch.equal(out, fused_residual_unit(p, x, dil, torch.float32)),
-                f"fp32 C={c} dil={dil}: two runs on one input differ")
-        tile = fused_conv._load().sa_res_unit_plan(c, dil, 0)
-        dev = device_ms(lambda: fused_residual_unit(p, x, dil, torch.float32), iters=5)
-        lib_dev = device_ms(lambda: library_chain(p, x, dil), iters=5)
-        bms, by = bound_ms(2 * 8 * c * c * t, 2 * c * t * 4 + 8 * c * c * 4 + 4 * c * 4,
-                           peak=PEAK_FP32)
-        records.append(dict(C=c, T=t, dilation=dil, route="sliced" if tile < 0 else "whole",
-                            time_tile=abs(tile), max_abs_err=err, device_ms=dev,
-                            library_device_ms=lib_dev, bound_ms=bms, bound_by=by))
-        log(f"    {records[-1]['route']} (tile {abs(tile)}): device {dev:.3f} ms, conv1d chain "
-            f"device {lib_dev:.3f} ms, bound {bms:.4f} ms ({by})")
-    require(records[-1]["route"] == "sliced", "fp32 C=768 dil=9: expected the sliced variant")
-    return records
+    records, err = [], 0.0
+    totals = {k: 0.0 for k in ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+                               "bound_fma_ms", "bound_3xtf32_ms")}
+    encoder = dict(totals)
+    for c, t in ENCODER_SHAPES + DECODER_SHAPES:
+        x = torch.randn(1, c, t, generator=g, device=DEVICE)
+        for dil in (1, 3, 9):
+            p = unit(c, seed=2000 + c + dil)
+            n = fused_residual_unit.launches
+            out = fused_residual_unit(p, x, dil, torch.float32)
+            require(fused_residual_unit.launches == n + 1, f"fp32 C={c} dil={dil}: no launch")
+            ops = residual_unit_operands(p, x, torch.float32)
+            ref = fused_residual_unit_plain(*ops, dil)
+            torch.cuda.synchronize()
+            e = check_close(f"fp32 C={c} T={t} dil={dil} (chunk {fp32_chunk(c)})", out, ref,
+                            1e-4, 1e-4)
+            err = max(err, e)
+            require(torch.equal(out, fused_residual_unit(p, x, dil, torch.float32)),
+                    f"fp32 C={c} dil={dil}: two runs on one input differ")
+            del out, ref
+            reps = 2 if c * t > 3e7 else 5
+            rec = dict(fp32_bounds(2 * 8 * c * c * t, 2 * c * t * 4 + 8 * c * c * 4 + 4 * c * 4),
+                       C=c, T=t, dilation=dil, chunk=fp32_chunk(c), max_abs_err=e,
+                       ms=time_ms(lambda: fused_residual_unit(p, x, dil, torch.float32),
+                                  iters=reps),
+                       device_ms=device_ms(lambda: fused_residual_unit(p, x, dil, torch.float32),
+                                           iters=reps),
+                       plain_ms=time_ms(lambda: fused_residual_unit_plain(*ops, dil), iters=reps),
+                       library_ms=time_ms(lambda: library_chain(p, x, dil), iters=reps),
+                       library_device_ms=device_ms(lambda: library_chain(p, x, dil), iters=reps))
+            records.append(rec)
+            weight = 1 if (c, t) in ENCODER_SHAPES else 2
+            for key in totals:
+                totals[key] += weight * rec[key]
+                if (c, t) in ENCODER_SHAPES:
+                    encoder[key] += rec[key]
+            log(f"    kernel {rec['ms']:.3f} ms (device {rec['device_ms']:.3f}), plain "
+                f"{rec['plain_ms']:.3f} ms, conv1d chain {rec['library_ms']:.3f} ms (device "
+                f"{rec['library_device_ms']:.3f}); bound as fp32 FMAs {rec['bound_fma_ms']:.4f} ms, "
+                f"as 3xTF32 {rec['bound_3xtf32_ms']:.4f} ms")
+        del x
+    torch.cuda.empty_cache()
+    log(f"  fp32, the 36 launches of a separate: device {totals['device_ms']:.2f} ms (conv1d "
+        f"chain {totals['library_device_ms']:.2f}; bounds {totals['bound_fma_ms']:.2f} as FMAs, "
+        f"{totals['bound_3xtf32_ms']:.2f} as 3xTF32); the encoder's 12: device "
+        f"{encoder['device_ms']:.2f} ms")
+    return {"per_shape": records, "totals_36": totals, "totals_encoder_12": encoder,
+            "max_abs_err": err}
 
 
 def check_narrow_widths(unit, library_chain, g):
@@ -741,8 +812,23 @@ def check_matmul_int4(results, cfg):
             log(f"    kernel {ms:.4f} ms (device {dev:.4f}), plain {plain:.4f} ms, matmul of the "
                 f"dequantized weight {lib:.4f} ms (device {lib_dev:.4f}), bound {bms:.5f} ms "
                 f"({by}); {n} launches at k=1")
+        # the fp32 body (FMA products): an fp32 model after quantize(4), 250 tokens
+        x = torch.randn(250, din, generator=g, device=DEVICE)
+        w_deq32 = w_deq.float()
+        rec = dict(fp32_bounds(2 * 250 * din * out,
+                               250 * din * 4 + w4.numel() + s.numel() * 4 + 250 * out * 4),
+                   out=out, din=din, tokens=250, launches_per_separate_k1=k1.get((out, din, 250), 0),
+                   ms=time_ms(lambda: matmul_int4(x, w4, s)),
+                   device_ms=device_ms(lambda: matmul_int4(x, w4, s)),
+                   plain_ms=time_ms(lambda: matmul_int4_plain(x, w4, s), iters=5),
+                   library_ms=time_ms(lambda: torch.matmul(x, w_deq32.t())),
+                   library_device_ms=device_ms(lambda: torch.matmul(x, w_deq32.t())))
+        results.setdefault("fp32", []).append(rec)
+        log(f"    fp32 tokens=250: kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), plain "
+            f"{rec['plain_ms']:.4f} ms, fp32 matmul of the dequantized weight "
+            f"{rec['library_ms']:.4f} ms (device {rec['library_device_ms']:.4f}); bound as fp32 "
+            f"FMAs {rec['bound_fma_ms']:.5f} ms, as 3xTF32 {rec['bound_3xtf32_ms']:.5f} ms")
         if (out, din) == (dim, dim):
-            x = torch.randn(250, din, generator=g, device=DEVICE)
             y = matmul_int4(x, w4, s)
             ref = matmul_int4_plain(x, w4, s)
             torch.cuda.synchronize()
@@ -3790,13 +3876,16 @@ def main() -> int:
         record = {"fused_glue_attention": k1.get("per_launch"),
                   "fused_glue_attention_extra": k1.get("extra"),
                   "flash_attention": k2.get("per_launch"),
+                  "fp32": {name: res["fp32"] for name, res in
+                           (("fused_glue_attention", k1), ("flash_attention", k2),
+                            ("fused_residual_unit", k3), ("matmul_int4", k4)) if "fp32" in res},
                   "fused_residual_unit_shapes": k3.get("per_shape"),
                   "fused_residual_unit_totals": k3.get("totals"),
                   "matmul_int4_shapes": k4.get("per_shape"), "power": smi}
         os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
         with open(os.path.join(HERE, "build", "chip_smoke_kernels.json"), "w") as f:
             json.dump(record, f, indent=1)
-        log(json.dumps({k: v for k, v in record.items() if "shapes" not in k}))
+        log(json.dumps({k: v for k, v in record.items() if "shapes" not in k and k != "fp32"}))
         log(smi)
         return 0
     if sys.argv[1:3] == ["--phase", "parallel"]:
@@ -3916,8 +4005,8 @@ def main() -> int:
             extra["forward_backward"] = res["fwd_bwd"]
         if "narrow" in res:    # kernel 3 at widths that are not multiples of 32
             extra["narrow_widths"] = res["narrow"]
-        if "fp32_decoder_768" in res:   # kernel 3 in fp32 at 768 channels
-            extra["fp32_decoder_768"] = res["fp32_decoder_768"]
+        if "fp32" in res:   # the fp32 body at its paths' shapes, with both bounds
+            extra["fp32"] = res["fp32"]
         extra["train_launches_per_step"] = train["launches_per_step"][res["name"]]
         extra["parallel_launches_per_rank"] = parallel_launches[res["name"]]
         return {**extra, "name": res["name"], "route": "cuda", "source": source,

@@ -35,155 +35,31 @@
 //             and V were) and each warpgroup sums and stores 32 columns.
 //   At t_pad <= 256 K and V have places of their own; at 384 and 512 a
 //   warpgroup's V lands on its K once its scores are done.
-//   fp32: 16 query rows, 256 threads; the rows' fp32 scores for every key
-//         stay in shared memory (16 x T_pad, 32 KB at T = 512) for one exact
-//         softmax; fp32 FMA products.
+//   fp32: the same 64 query rows a tile, its keys split over a cluster of
+//         two blocks (one half each, each key normalised once a tile), and
+//         both products on the tensor cores in split TF32 ("3xTF32",
+//         tf32.cuh): every operand is x = hi + lo in TF32 and a product is
+//         hi.hi + hi.lo + lo.hi (mma.sync m16n8k8, fp32 accumulation; the
+//         dropped lo.lo is ~2^-21 of a term), which holds the plain
+//         version's 1e-4 where one TF32 product (~2^-11) would not. The
+//         precision is the design's: the kernel reads neither
+//         torch.backends.cuda.matmul.allow_tf32 nor cudnn.allow_tf32. Bound
+//         at (1, 250, 16, 128): 3 x 0.52 GFLOP of TF32 products, 3.1 us at
+//         495 TFLOP/s (7.6 us as fp32 FMAs), 8.2 MB (2.4 us). See
+//         fused_glue_attention_tf32_kernel.
 
 #include "common.cuh"
 #include "sm90.cuh"
 #include "tensor_map.cuh"
+#include "tf32.cuh"
+
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int D = 128;
-constexpr int QT = 16;        // query rows per block
-constexpr int KT = 64;        // keys per streamed tile
-constexpr int THREADS = 256;  // 8 warps
-constexpr int LD = D + 1;     // padded shared-memory row stride (floats)
-
-// One warp normalises and rotates one row of D values; lane l holds columns
-// l, l+32 (first half) and their rotary partners l+64, l+96.
-__device__ __forceinline__ void norm_rope_row(const float* __restrict__ src,
-                                              const float* __restrict__ w,
-                                              const float* __restrict__ cs,
-                                              const float* __restrict__ sn,
-                                              float eps, float* dst) {
-  const int lane = threadIdx.x & 31;
-  float x[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = src[lane + 32 * i];
-  float ss = x[0] * x[0] + x[1] * x[1] + x[2] * x[2] + x[3] * x[3];
-  ss = sa::warp_sum(ss);
-  const float r = rsqrtf(ss / D + eps);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = x[i] * r * w[lane + 32 * i];
-  const float c0 = cs[lane], s0 = sn[lane], c1 = cs[lane + 32], s1 = sn[lane + 32];
-  dst[lane] = x[0] * c0 - x[2] * s0;
-  dst[lane + 64] = x[0] * s0 + x[2] * c0;
-  dst[lane + 32] = x[1] * c1 - x[3] * s1;
-  dst[lane + 96] = x[1] * s1 + x[3] * c1;
-}
-
-__device__ __forceinline__ void zero_row(float* dst) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) dst[lane + 32 * i] = 0.f;
-}
-
-__global__ void __launch_bounds__(THREADS)
-fused_glue_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v, const float* __restrict__ qw,
-                            const float* __restrict__ kw, const float* __restrict__ cs,
-                            const float* __restrict__ sn,
-                            const uint8_t* __restrict__ mask, float* __restrict__ out,
-                            int Tn, int H, int t_pad, float eps, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;            // QT x LD
-  float* KVs = Qs + QT * LD;   // KT x LD
-  float* S = KVs + KT * LD;    // QT x t_pad
-
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int q0 = blockIdx.x * QT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t row_stride = (size_t)H * D;
-  const size_t base = ((size_t)b * Tn * H + h) * D;
-  const uint8_t* mrow = mask ? mask + (size_t)b * Tn : nullptr;
-
-  for (int r = warp; r < QT; r += THREADS / 32) {
-    const int t = q0 + r;
-    if (t < Tn)
-      norm_rope_row(q + base + t * row_stride, qw, cs + (size_t)t * (D / 2),
-                       sn + (size_t)t * (D / 2), eps, Qs + r * LD);
-    else
-      zero_row(Qs + r * LD);
-  }
-
-  // scores: thread -> key j of the tile, query rows 4*rg .. 4*rg+3
-  const int j = threadIdx.x % KT, rg = threadIdx.x / KT;
-  for (int k0 = 0; k0 < t_pad; k0 += KT) {
-    __syncthreads();
-    for (int r = warp; r < KT; r += THREADS / 32) {
-      const int t = k0 + r;
-      if (t < Tn)
-        norm_rope_row(k + base + t * row_stride, kw, cs + (size_t)t * (D / 2),
-                         sn + (size_t)t * (D / 2), eps, KVs + r * LD);
-      else
-        zero_row(KVs + r * LD);
-    }
-    __syncthreads();
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float kv = KVs[j * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i] = fmaf(Qs[(rg * 4 + i) * LD + d], kv, acc[i]);
-    }
-    const int key = k0 + j;
-    const bool valid = key < Tn && (mrow == nullptr || mrow[key] != 0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      S[(rg * 4 + i) * t_pad + key] = valid ? acc[i] * scale : sa::kF32Min;
-  }
-  __syncthreads();
-
-  // row softmax (one warp per row); p is normalised, then rounded to T
-  for (int r = warp; r < QT; r += THREADS / 32) {
-    float* row = S + r * t_pad;
-    float m = -INFINITY;
-    for (int c = lane; c < t_pad; c += 32) m = fmaxf(m, row[c]);
-    m = sa::warp_max(m);
-    float s = 0.f;
-    for (int c = lane; c < t_pad; c += 32) {
-      const float e = expf(row[c] - m);
-      row[c] = e;
-      s += e;
-    }
-    s = sa::warp_sum(s);
-    for (int c = lane; c < t_pad; c += 32) row[c] /= s;
-  }
-
-  // out rows 2*warp, 2*warp+1; columns lane + 32*i
-  const int r0 = warp * 2;
-  float o[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-  for (int k0 = 0; k0 < t_pad; k0 += KT) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < KT * D; e += THREADS) {
-      const int r = e / D, c = e % D, t = k0 + r;
-      KVs[r * LD + c] = t < Tn ? v[base + t * row_stride + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int jj = 0; jj < KT; ++jj) {
-      const float p0 = S[r0 * t_pad + k0 + jj], p1 = S[(r0 + 1) * t_pad + k0 + jj];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float vv = KVs[jj * LD + lane + 32 * i];
-        o[0][i] = fmaf(p0, vv, o[0][i]);
-        o[1][i] = fmaf(p1, vv, o[1][i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int rr = 0; rr < 2; ++rr) {
-    const int t = q0 + r0 + rr;
-    if (t < Tn) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        out[base + t * row_stride + lane + 32 * i] = o[rr][i];
-    }
-  }
-}
-
 
 // ---------------------------------------------------------------- bf16 path
 
@@ -494,6 +370,319 @@ fused_glue_attention_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 }
 
+// ---------------------------------------------------------------- fp32 path
+
+constexpr int FQ = 64;            // query rows a tile
+constexpr int FTHREADS = 256;     // 8 warps: 4 groups of 16 query rows x 2 quarters of the keys
+constexpr int FLD = D + 4;        // row stride in floats (528 bytes): conflict-free fragment loads
+constexpr int FKB = 32;           // keys of a quarter in one streamed block
+constexpr int FROWS = 2 * FKB;    // rows of a streamed block: both quarters' 32 keys
+constexpr size_t FP32_SMEM = sizeof(float) * (size_t)(FQ + 2 * FROWS) * FLD;
+
+// Rows of a tile in shared memory (FLD apart), RMS-normalised by weight w and
+// rotated at their positions, in place: warp `warp` takes rows warp, warp +
+// 8, ..., NR at a time so that their table loads are in flight together;
+// lane l holds columns l, l + 32 and their rotary partners l + 64, l + 96 (the
+// same arithmetic as the plain version, fp32). A row whose position is past
+// T (staged as zeros) is left as it is.
+template <int NR, typename PosOf>
+__device__ __forceinline__ void norm_rope_rows(float* tile, int nrows, PosOf pos_of, int Tn,
+                                               const float* __restrict__ w,
+                                               const float* __restrict__ cs,
+                                               const float* __restrict__ sn, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float wv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) wv[i] = w[lane + 32 * i];
+  for (int r0 = warp; r0 < nrows; r0 += 8 * NR) {
+    float x[NR][4], c[NR][2], s[NR][2];
+    int tpos[NR];
+#pragma unroll
+    for (int u = 0; u < NR; ++u) {
+      const int r = r0 + 8 * u;
+      tpos[u] = r < nrows ? pos_of(r) : Tn;
+      const bool ok = tpos[u] < Tn;
+      const float* tc = cs + (size_t)(ok ? tpos[u] : 0) * (D / 2);
+      const float* ts = sn + (size_t)(ok ? tpos[u] : 0) * (D / 2);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[u][i] = ok ? tile[r * FLD + lane + 32 * i] : 0.f;
+      c[u][0] = ok ? tc[lane] : 0.f;
+      c[u][1] = ok ? tc[lane + 32] : 0.f;
+      s[u][0] = ok ? ts[lane] : 0.f;
+      s[u][1] = ok ? ts[lane + 32] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < NR; ++u) {
+      if (tpos[u] >= Tn) continue;  // the same for every lane of the warp
+      float ss = x[u][0] * x[u][0] + x[u][1] * x[u][1] + x[u][2] * x[u][2] + x[u][3] * x[u][3];
+      ss = sa::warp_sum(ss);
+      const float rr = rsqrtf(ss / D + eps);
+      float y[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) y[i] = x[u][i] * rr * wv[i];
+      float* row = tile + (r0 + 8 * u) * FLD;
+      row[lane] = y[0] * c[u][0] - y[2] * s[u][0];
+      row[lane + 64] = y[0] * s[u][0] + y[2] * c[u][0];
+      row[lane + 32] = y[1] * c[u][1] - y[3] * s[u][1];
+      row[lane + 96] = y[1] * s[u][1] + y[3] * c[u][1];
+    }
+  }
+}
+
+// The fp32 body: the same 64 query rows a tile as in bf16, the tile's work
+// split over a cluster of two blocks on two SMs (B = 1 gives 128 blocks,
+// not 64). Block r of the pair owns half r of the t_pad keys (KW = t_pad / 2)
+// and normalises and rotates only those, so each key is normalised once a
+// tile; its 8 warps: warp w takes query rows 16 (w % 4) .. + 15 and quarter
+// w / 4 of the block's keys (KQ = KW / 2). Both products are mma.sync
+// m16n8k8 TF32 in 3xTF32 (tf32.cuh), the fragments loaded from shared
+// memory and split in registers: TF32 wgmma would need V K-major, i.e.
+// transposed, and every operand split in shared memory, hi and lo, which
+// does not fit beside Q, K and V at T = 512.
+//   Copies:  Q, then the block's K and V in blocks of 2 x 32 keys (each
+//            quarter's next 32), by 16-byte cp.async into two buffers, the
+//            next landing while this one is used; rows past T arrive as
+//            zeros.
+//   Norm:    Q (both blocks), then each K block, in place.
+//   Scores:  q' k'^T for the warp's 16 rows and KQ keys stay in registers
+//            (KQ / 2 a thread).
+//   Softmax: each quarter's row max and sum in base 2, traded once across
+//            the cluster (distributed shared memory); p = 2^(x - m_q)
+//            2^(m_q - m) / l, normalised before the second product, as the
+//            plain version.
+//   p . v:   p's accumulator fragments are the A fragments of m16n8k8 once
+//            keys 2q and 2q + 1 of each 8 are taken as k = q and q + 4; V's
+//            rows are read in the same order. The four partial outputs meet
+//            across the cluster; block r sums and stores rows 32 r .. + 31
+//            in 16-byte pieces.
+// Bound at (1, 250, 16, 128): 3 x 0.52 GFLOP of TF32 products, 3.1 us at
+// 495 TFLOP/s (7.6 us as fp32 FMAs); 8.2 MB, 2.4 us at 3.35 TB/s.
+// Up to T = 256 (KW <= 128) two blocks share an SM (128 registers a thread,
+// 101 KB of shared memory each), which hides more latency when B > 1.
+template <int KW>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(FTHREADS, KW <= 128 ? 2 : 1)
+fused_glue_attention_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ qw,
+                                 const float* __restrict__ kw, const float* __restrict__ cs,
+                                 const float* __restrict__ sn, const uint8_t* __restrict__ mask,
+                                 float* __restrict__ out, int Tn, int H, float eps,
+                                 float scale_log2) {
+  constexpr int KQ = KW / 2;             // keys of a warp's quarter
+  constexpr int NB = KQ / FKB;           // streamed blocks of K, then as many of V
+  constexpr int NR = KQ <= 64 ? 8 : 4;   // rows a warp normalises at once (registers allowing)
+  extern __shared__ __align__(16) float fsmem[];
+  __shared__ float red_m[2][FQ], red_l[2][FQ];
+  float* Qs = fsmem;                     // FQ x FLD
+  float* bufs = fsmem + FQ * FLD;        // two blocks of FROWS x FLD
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = warp & 3, kq = warp >> 2;
+  const int g = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int q0 = (blockIdx.x >> 1) * FQ;
+  const size_t row_stride = (size_t)H * D;
+  const size_t base = ((size_t)b * Tn * H + h) * D;
+
+  // row r of block i is key rank KW + (r / 32) KQ + 32 (i % NB) + r % 32: K
+  // for i < NB, V after
+  auto key_of = [&](int i, int r) {
+    return rank * KW + (r / FKB) * KQ + FKB * (i % NB) + (r % FKB);
+  };
+  auto fetch = [&](int i) {
+    if (i < 2 * NB) {
+      const float* src = i < NB ? k : v;
+      float* dst = bufs + (i % 2) * FROWS * FLD;
+      for (int p = threadIdx.x; p < FROWS * (D / 4); p += FTHREADS) {
+        const int r = p / (D / 4), c4 = p % (D / 4), key = key_of(i, r);
+        const bool in = key < Tn;
+        sa::cp_async16(sa::smem_u32(dst + r * FLD + 4 * c4),
+                       in ? src + base + key * row_stride + 4 * c4 : src, in ? 16 : 0);
+      }
+    }
+    sa::cp_async_commit();
+  };
+  for (int p = threadIdx.x; p < FQ * (D / 4); p += FTHREADS) {
+    const int r = p / (D / 4), c4 = p % (D / 4), t = q0 + r;
+    const bool in = t < Tn;
+    sa::cp_async16(sa::smem_u32(Qs + r * FLD + 4 * c4), in ? q + base + t * row_stride + 4 * c4 : q,
+                   in ? 16 : 0);
+  }
+  sa::cp_async_commit();
+  fetch(0);
+  fetch(1);
+  sa::cp_async_wait<2>();
+  __syncthreads();
+  norm_rope_rows<NR>(Qs, FQ, [&](int r) { return q0 + r; }, Tn, qw, cs, sn, eps);
+
+  // s[i][n]: the scores of 8-key tile n of block i; o[hf][n]: output
+  // columns 64 hf + 8 n .. + 7
+  float s[NB][FKB / 8][4], o[2][8][4];
+#pragma unroll
+  for (int i = 0; i < NB; ++i)
+#pragma unroll
+    for (int n = 0; n < FKB / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][n][e] = 0.f;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[hf][n][e] = 0.f;
+  const float* qa = Qs + (16 * rg) * FLD;
+
+#pragma unroll
+  for (int i = 0; i < 2 * NB; ++i) {
+    sa::cp_async_wait<1>();  // block i has landed (block i + 1 may be in flight)
+    __syncthreads();         // ... for every thread's pieces; Q is normalised
+    float* blk = bufs + (i % 2) * FROWS * FLD;
+    if (i < NB) {
+      norm_rope_rows<NR>(blk, FROWS, [&](int r) { return key_of(i, r); }, Tn, kw, cs, sn, eps);
+      __syncthreads();
+      // scores of this block: keys 32 i .. 32 i + 31 of the warp's quarter
+      const float* kb = blk + (kq * FKB) * FLD;
+#pragma unroll 4
+      for (int ks = 0; ks < D / 8; ++ks) {
+        uint32_t ah[4], al[4];
+        sa::split_tf32(qa[g * FLD + 8 * ks + tq], ah[0], al[0]);
+        sa::split_tf32(qa[(g + 8) * FLD + 8 * ks + tq], ah[1], al[1]);
+        sa::split_tf32(qa[g * FLD + 8 * ks + tq + 4], ah[2], al[2]);
+        sa::split_tf32(qa[(g + 8) * FLD + 8 * ks + tq + 4], ah[3], al[3]);
+        uint32_t bh[FKB / 8][2], bl[FKB / 8][2];
+#pragma unroll
+        for (int n = 0; n < FKB / 8; ++n) {
+          sa::split_tf32(kb[(8 * n + g) * FLD + 8 * ks + tq], bh[n][0], bl[n][0]);
+          sa::split_tf32(kb[(8 * n + g) * FLD + 8 * ks + tq + 4], bh[n][1], bl[n][1]);
+        }
+        sa::mma_3xtf32(s[i], ah, al, bh, bl);
+      }
+    } else {
+      if (i == NB) {
+        // Softmax in base 2: x = s * scale * log2(e); a masked key (or one
+        // past T) takes finfo(f32).min itself, unscaled, so that a fully
+        // masked row is uniform. Element e of tile n of block bi: row 16 rg
+        // + g + 8 (e / 2), key rank KW + kq KQ + 32 bi + 8 n + 2 tq + e % 2.
+        const uint8_t* mrow = mask ? mask + (size_t)b * Tn : nullptr;
+        float m_loc[2] = {-INFINITY, -INFINITY}, l_loc[2] = {0.f, 0.f};
+#pragma unroll
+        for (int bi = 0; bi < NB; ++bi)
+#pragma unroll
+          for (int n = 0; n < FKB / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = rank * KW + kq * KQ + FKB * bi + 8 * n + 2 * tq + (e & 1);
+              const bool ok = key < Tn && (mrow == nullptr || mrow[key] != 0);
+              s[bi][n][e] = ok ? s[bi][n][e] * scale_log2 : sa::kF32Min;
+              m_loc[e >> 1] = fmaxf(m_loc[e >> 1], s[bi][n][e]);
+            }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          m_loc[r] = fmaxf(m_loc[r], __shfl_xor_sync(0xffffffffu, m_loc[r], 1));
+          m_loc[r] = fmaxf(m_loc[r], __shfl_xor_sync(0xffffffffu, m_loc[r], 2));
+        }
+#pragma unroll
+        for (int bi = 0; bi < NB; ++bi)
+#pragma unroll
+          for (int n = 0; n < FKB / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[bi][n][e] = sa::ex2(s[bi][n][e] - m_loc[e >> 1]);
+              l_loc[e >> 1] += s[bi][n][e];
+            }
+        const int row0 = 16 * rg + g;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          l_loc[r] += __shfl_xor_sync(0xffffffffu, l_loc[r], 1);
+          l_loc[r] += __shfl_xor_sync(0xffffffffu, l_loc[r], 2);
+          if (tq == 0) {
+            red_m[kq][row0 + 8 * r] = m_loc[r];
+            red_l[kq][row0 + 8 * r] = l_loc[r];
+          }
+        }
+        cluster.sync();  // both blocks' quarters' statistics are written
+        const float* rm = cluster.map_shared_rank(&red_m[0][0], rank ^ 1);
+        const float* rl = cluster.map_shared_rank(&red_l[0][0], rank ^ 1);
+        float f[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = row0 + 8 * r;
+          const float mq[4] = {red_m[0][row], red_m[1][row], rm[row], rm[FQ + row]};
+          const float lq[4] = {red_l[0][row], red_l[1][row], rl[row], rl[FQ + row]};
+          const float m = fmaxf(fmaxf(mq[0], mq[1]), fmaxf(mq[2], mq[3]));
+          float l = 0.f;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) l += lq[j] * sa::ex2(mq[j] - m);
+          f[r] = sa::ex2(m_loc[r] - m) / l;
+        }
+#pragma unroll
+        for (int bi = 0; bi < NB; ++bi)
+#pragma unroll
+          for (int n = 0; n < FKB / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[bi][n][e] *= f[e >> 1];
+      }
+      // o += p . v over keys 32 (i - NB) .. + 31 of the warp's quarter;
+      // within each 8 keys, keys 2 tq and 2 tq + 1 are k = tq and tq + 4
+      const float* vb = blk + (kq * FKB) * FLD;
+#pragma unroll
+      for (int kk = 0; kk < FKB / 8; ++kk) {
+        const float* sp = s[i - NB][kk];
+        uint32_t ah[4], al[4];
+        sa::split_tf32(sp[0], ah[0], al[0]);
+        sa::split_tf32(sp[2], ah[1], al[1]);
+        sa::split_tf32(sp[1], ah[2], al[2]);
+        sa::split_tf32(sp[3], ah[3], al[3]);
+        const float* v0 = vb + (8 * kk + 2 * tq) * FLD + g;
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          uint32_t bh[8][2], bl[8][2];
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            sa::split_tf32(v0[64 * hf + 8 * n], bh[n][0], bl[n][0]);
+            sa::split_tf32(v0[FLD + 64 * hf + 8 * n], bh[n][1], bl[n][1]);
+          }
+          sa::mma_3xtf32(o[hf], ah, al, bh, bl);
+        }
+      }
+    }
+    __syncthreads();  // block i's buffer is free
+    fetch(i + 2);
+  }
+
+  // the quarters' partial outputs meet in the buffers (every block is read):
+  // quarter kq of this block at rows 64 kq ..; block r sums rows 32 r .. + 31
+  // of all four (two of them in the other block) and stores those below T
+  float* red = bufs + kq * FQ * FLD;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(red + (16 * rg + g + 8 * r) * FLD + 64 * hf + 8 * n + 2 * tq) =
+            make_float2(o[hf][n][2 * r], o[hf][n][2 * r + 1]);
+  cluster.sync();  // both blocks' partials are written
+  const float* other = cluster.map_shared_rank(bufs, rank ^ 1);
+  for (int p = threadIdx.x; p < (FQ / 2) * (D / 4); p += FTHREADS) {
+    const int r = 32 * rank + p / (D / 4), c4 = p % (D / 4), t = q0 + r;
+    if (t < Tn) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float* src = (j < 2 ? bufs : other) + ((j & 1) * FQ + r) * FLD + 4 * c4;
+        const float4 a = *reinterpret_cast<const float4*>(src);
+        acc.x += a.x;
+        acc.y += a.y;
+        acc.z += a.z;
+        acc.w += a.w;
+      }
+      *reinterpret_cast<float4*>(out + base + t * row_stride + 4 * c4) = acc;
+    }
+  }
+  cluster.sync();  // the other block is done reading this block's partials
+}
+
 // A (B, T, H, D) bf16 tensor as a 4-D map whose box is 32 rows of one head,
 // 64 columns wide (128 bytes, the swizzle's span).
 int qkv_map(const void* ptr, int B, int T, int H, CUtensorMap* out) {
@@ -529,16 +718,27 @@ int launch_bf16(const void* q, const void* k, const void* v, const float* qw, co
   }
 }
 
+template <int KW>
+int launch_fp32_kw(const float* q, const float* k, const float* v, const float* qw,
+                   const float* kw, const float* cs, const float* sn, const uint8_t* mask,
+                   float* out, int B, int Tn, int H, float eps, float scale, cudaStream_t stream) {
+  dim3 grid(2 * ((Tn + FQ - 1) / FQ), B * H);  // a cluster of two blocks a tile
+  return sa::launch(fused_glue_attention_tf32_kernel<KW>, grid, dim3(FTHREADS), FP32_SMEM, stream,
+                    q, k, v, qw, kw, cs, sn, mask, out, Tn, H, eps, scale * LOG2E);
+}
+
 int launch_fp32(const void* q, const void* k, const void* v, const float* qw,
                 const float* kw, const float* cs, const float* sn, const uint8_t* mask,
                 void* out, int B, int Tn, int H, float eps, float scale,
                 cudaStream_t stream) {
-  const int t_pad = (Tn + 127) / 128 * 128;
-  const size_t smem = sizeof(float) * ((size_t)QT * LD + (size_t)KT * LD + (size_t)QT * t_pad);
-  dim3 grid((Tn + QT - 1) / QT, B * H);
-  return sa::launch(fused_glue_attention_kernel, grid, dim3(THREADS), smem, stream,
-                    (const float*)q, (const float*)k, (const float*)v, qw, kw, cs, sn, mask,
-                    (float*)out, Tn, H, t_pad, eps, scale);
+  const float *qf = (const float*)q, *kf = (const float*)k, *vf = (const float*)v;
+  float* of = (float*)out;
+  switch ((Tn + 127) / 128) {  // KW = t_pad / 2
+    case 1: return launch_fp32_kw<64>(qf, kf, vf, qw, kw, cs, sn, mask, of, B, Tn, H, eps, scale, stream);
+    case 2: return launch_fp32_kw<128>(qf, kf, vf, qw, kw, cs, sn, mask, of, B, Tn, H, eps, scale, stream);
+    case 3: return launch_fp32_kw<192>(qf, kf, vf, qw, kw, cs, sn, mask, of, B, Tn, H, eps, scale, stream);
+    default: return launch_fp32_kw<256>(qf, kf, vf, qw, kw, cs, sn, mask, of, B, Tn, H, eps, scale, stream);
+  }
 }
 
 }  // namespace
@@ -546,8 +746,8 @@ int launch_fp32(const void* q, const void* k, const void* v, const float* qw,
 // q, k, v, out: (B, T, H, D) contiguous, dtype 0 = float32, 1 = bfloat16;
 // qw, kw: (D,) float32; cs, sn: (T, D/2) float32; mask: (B, T) uint8, or null
 // for no mask.
-// D must be 128 and T <= 512 (the fp32 path keeps 16 rows' scores in shared
-// memory). In bf16, q/k/v rows and cos/sin rows must start 16-byte aligned.
+// D must be 128 and T <= 512 (each warp keeps its rows' scores for half the
+// keys in registers). q/k/v and the cos/sin rows must start 16-byte aligned.
 extern "C" int sa_fused_glue_attention(const void* q, const void* k, const void* v,
                                        const float* qw, const float* kw,
                                        const float* cs, const float* sn,

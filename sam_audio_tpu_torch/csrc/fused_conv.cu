@@ -43,12 +43,28 @@
 //   Epilogue: each warpgroup's outputs pass through a tile in shared memory,
 //             so x is read and the result written in 16-byte pieces along
 //             time.
-//   fp32: fp32 FMA products, a block owns one time tile (64, 32 or 16) and
-//         every channel: s1 with its halo and h in shared memory, weights
-//         staged in 32-deep slices, each thread a 4-channel x TT/16-time block.
-//         Where s1 of every channel with its halo does not fit (C above ~640
-//         at dilation 9), the SLICED variant stages s1 for 32 input channels
-//         at a time, again for each 64 output channels; h stays whole.
+//   fp32: the same implicit GEMM on the tensor cores in split TF32
+//         ("3xTF32", tf32.cuh): every fp32 operand is x = hi + lo in TF32
+//         and a product is hi.hi + hi.lo + lo.hi (three wgmma m64nNk8,
+//         fp32 accumulation; the dropped lo.lo is ~2^-21 of a term), which
+//         holds the plain version's 1e-4 where one TF32 product (~2^-11)
+//         would not. The precision is the design's: the kernel reads
+//         neither torch.backends.cuda.matmul.allow_tf32 nor
+//         torch.backends.cudnn.allow_tf32. TF32 wgmma takes both operands
+//         from shared memory, K-major: the staged rows (hi and lo, 32
+//         channels a chunk: a 128-byte row, the bf16 layout byte for byte)
+//         and the weight slices (hi and lo, tiled and split once per unit on
+//         the host: ops/fused_conv.py::tile_weights_fp32). Staging warps
+//         read x with plain loads (any T), apply the exact snake (sinf) and
+//         split. Up to Cp = 64 one kernel does the unit, s2 split into each
+//         warpgroup's tile in shared memory for the 1x1 product; wider, a
+//         k7 kernel writes s2 to a scratch already in the staged layout,
+//         16 KB blocks that the 1x1 kernel fetches with one bulk copy each.
+//         The tensor cores' accumulation rounds toward zero, so the products
+//         of each staged chunk (four for the 1x1) go to a fresh accumulator
+//         that is added to the output's with fp32 adds (see PROMOTE_K7).
+//         Bound: the 36 launches' 2.28 TFLOP are 6.84 TFLOP of TF32
+//         products, 13.8 ms at 495 TFLOP/s (34.0 ms as fp32 FMAs at 67).
 //   Any C: both paths work on Cp = C rounded up to a multiple of 32 channels.
 //         Channels past C are zeros where they are staged (input rows, s1,
 //         h), the host pads the weights with zero rows and columns, the
@@ -64,15 +80,12 @@
 
 #include "common.cuh"
 #include "sm90.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;
-constexpr int KC = 32;        // reduction slice staged per step
-constexpr int CO = 64;        // output channels per pass
-constexpr int LA = CO + 1;    // fp32 path: padded stride of the staged slice
 constexpr int KSIZE = 7;
 constexpr double kTwoPi = 6.283185307179586;
 constexpr size_t kMaxSmem = 232448;  // 227 KB per block
@@ -90,12 +103,6 @@ __device__ __forceinline__ float sin2_fast(float z) {
   acc = acc * u + -0.49999985125182195f;
   acc = acc * u + 0.9999999738700588f;
   return 0.5f * (1.0f - acc);
-}
-
-// x + sin^2(a x) / a with the exact sine: the fp32 path
-__device__ __forceinline__ float snake_exact(float x, float a) {
-  const float v = sinf(a * x);
-  return x + (1.0f / (a + 1e-9f)) * (v * v);
 }
 
 // ---------------------------------------------------------------- bf16 path
@@ -523,159 +530,432 @@ int run_split(ResArgs a, const bf16* x, const float* b7, const float* b1, bf16* 
 
 // ---------------------------------------------------------------- fp32 path
 
-// acc[r][i] += sum_k W[co0 + 4*cg + r][k] * B[k][tg + 16*i] over k < kdim (a
-// multiple of KC), where W(co, k) = w[co * w_ld + k], zero for co >= C or
-// k >= kC, and B(k, t) = bsrc[k * b_ld + t].
-template <int TR>
-__device__ __forceinline__ void fma_gemm(const float* __restrict__ w, int w_ld, int kdim,
-                                         const float* bsrc, int b_ld, int co0, int C, int kC,
-                                         float* As, float (&acc)[4][TR]) {
-  const int tg = threadIdx.x % 16, cg = threadIdx.x / 16;
-  for (int k0 = 0; k0 < kdim; k0 += KC) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < KC * CO; e += THREADS) {
-      const int kk = e % KC, col = e / KC, co = co0 + col;
-      As[kk * LA + col] = co < C && k0 + kk < kC ? w[(size_t)co * w_ld + k0 + kk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KC; ++kk) {
-      float a[4], bv[TR];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) a[r] = As[kk * LA + cg * 4 + r];
-      const float* brow = bsrc + (size_t)(k0 + kk) * b_ld + tg;
-#pragma unroll
-      for (int i = 0; i < TR; ++i) bv[i] = brow[16 * i];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int i = 0; i < TR; ++i) acc[r][i] = fmaf(a[r], bv[i], acc[r][i]);
-    }
-  }
+// The bf16 body's implicit GEMM with TF32 operands in 3xTF32 (tf32.cuh). A
+// staged chunk is 32 input channels: a 128-byte time row of TF32, the bytes
+// of a bf16 chunk's 64 channels, so the column blocks and descriptors are
+// the bf16 body's; it is stored twice, hi then lo. A weight slice is NC
+// output channels x 32 input channels, hi then lo, each half the bf16
+// slices' swizzled layout.
+constexpr int KCF = 32;       // input channels of an fp32 chunk
+constexpr int NST_MAX = 3;    // staged chunks in flight, at most
+
+// slices are NC rows of 32 TF32, hi then lo
+__host__ __device__ constexpr int fp32_slice_bytes(int NC) { return 2 * NC * 128; }
+// CONV1 keeps three chunks in flight: one landing, one being split, one in use
+__host__ __device__ constexpr int fp32_stages(int mode) { return mode == CONV1 ? 3 : 2; }
+
+struct ResArgs32 {
+  const float* src;     // x (FUSED, CONV7) or the staged s2 scratch (CONV1)
+  const float* x;       // the residual (FUSED, CONV1)
+  const float* w;       // the tiled weight slices (hi, lo)
+  const float* bias;    // b7 (FUSED, CONV7) or b1 (CONV1), (Cp,)
+  const float* b1;      // FUSED: the 1x1 bias
+  const float2* a_in;   // (alpha, 1 / (alpha + 1e-9)) of the first snake (FUSED, CONV7)
+  const float2* a_out;  // the same for h (FUSED, CONV7)
+  float* dst;           // out (FUSED, CONV1) or the s2 scratch (CONV7)
+  int C, T, dil, n_items, n_tiles, n_chunks, slots, w1_first;
+};
+
+// x + sin^2(a x) / a with the exact sine (the plain version's torch.sin), the
+// channel's a = alpha.x and 1 / (alpha + 1e-9) = alpha.y given
+__device__ __forceinline__ float snake_exact(float x, float2 a) {
+  const float v = sinf(a.x * x);
+  return x + a.y * (v * v);
 }
 
-// S1 rows 0 .. rows - 1 = snake(x) of channels c0 .. c0 + rows - 1 over
-// t0 - halo .. t0 - halo + ls - 1; zero past C and outside 0 .. Tn - 1.
-__device__ __forceinline__ void stage_snake1(float* S1, const float* __restrict__ xb,
-                                             const float* __restrict__ a1, int c0, int rows,
-                                             int C, int Tn, int t0, int halo, int ls) {
-  for (int e = threadIdx.x; e < rows * ls; e += THREADS) {
-    const int c = c0 + e / ls, u = e % ls, t = t0 - halo + u;
-    S1[e] = (c < C && t >= 0 && t < Tn) ? snake_exact(xb[(size_t)c * Tn + t], a1[c]) : 0.f;
-  }
+// The TF32 products on wgmma, picked by the accumulator's width NC = 2 x its size.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a, uint64_t b, int acc) { sa::wgmma_m64n32k8_tf32(d, a, b, acc); }
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t b, int acc) { sa::wgmma_m64n64k8_tf32(d, a, b, acc); }
+__device__ __forceinline__ void wgmma_tf32(float (&d)[48], uint64_t a, uint64_t b, int acc) { sa::wgmma_m64n96k8_tf32(d, a, b, acc); }
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t a, uint64_t b, int acc) { sa::wgmma_m64n128k8_tf32(d, a, b, acc); }
+
+// One k step of 8 input channels in 3xTF32: the small terms, then hi . hi;
+// accumulate = 0 starts d afresh
+template <int N>
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[N], uint64_t a_hi, uint64_t a_lo,
+                                             uint64_t b_hi, uint64_t b_lo, int accumulate) {
+  wgmma_tf32(d, a_lo, b_hi, accumulate);
+  wgmma_tf32(d, a_hi, b_lo, 1);
+  wgmma_tf32(d, a_hi, b_hi, 1);
 }
 
-template <int TT, bool SLICED>
-__global__ void __launch_bounds__(THREADS)
-res_unit_fma_kernel(const float* __restrict__ x, const float* __restrict__ w7,
-                    const float* __restrict__ b7, const float* __restrict__ w1,
-                    const float* __restrict__ b1, const float* __restrict__ a1,
-                    const float* __restrict__ a2, float* __restrict__ out, int C, int Tn,
-                    int dil) {
-  constexpr int TR = TT / 16;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int halo = 3 * dil;
-  const int ls = TT + 2 * halo;
-  const int Cp = padded_width(C);                  // rows C .. Cp - 1 of S1 and Hs are 0
-  float* As = reinterpret_cast<float*>(smem_raw);  // KC x LA
-  float* S1 = As + KC * LA;                        // Cp x ls (SLICED: KC x ls)
-  float* Hs = S1 + (size_t)(SLICED ? KC : Cp) * ls;  // Cp x TT
+// The tensor cores' fp32 accumulation does not round to nearest: an addition
+// can lose up to an ulp of the accumulator, always toward zero. Over the
+// 2,016 additions of a 768-channel unit (|h| up to ~8) one accumulator
+// drifted by up to 1.2e-4 on the card, past the 1e-4 contract. So each span
+// of PROMOTE staged chunks is summed in a fresh wgmma accumulator (a partial
+// sum, several times smaller) and added into the output's accumulator with
+// ordinary fp32 adds: 1.9e-5 at most at every width up to 1,024.
+constexpr int PROMOTE_K7 = 1;   // k7 products: 7 x 32 = 224 input values a span
+constexpr int PROMOTE_1X1 = 4;  // 1x1 products: 128 input values a span
 
-  const int t0 = blockIdx.x * TT;
-  const float* xb = x + (size_t)blockIdx.y * C * Tn;
-  float* ob = out + (size_t)blockIdx.y * C * Tn;
-  const int tg = threadIdx.x % 16, cg = threadIdx.x / 16;
+// One residual unit, or one half of it, in fp32: the bf16 kernel's roles,
+// work items and weight ring, with every product in 3xTF32.
+//   FUSED (Cp <= 64): s2 = snake(h) is split into the warpgroup's own tile
+//         (the staged layout, 64 rows) and the 1x1 product reads it there.
+//   CONV7: s2 = snake(h) of output channels [NC n, NC (n + 1)) goes to the
+//         scratch in the staged layout: for each (batch, 128-row tile,
+//         32-channel chunk), 8 column blocks of 128 rows x 16 bytes, 16 KB.
+//   CONV1: each such block is one bulk copy into a staged chunk, split in
+//         place by the staging warps.
+// The staging warps of FUSED and CONV7 read x with plain loads along time
+// (any T; eight rows of four channels a lane in flight), apply the snake
+// and store hi and lo. The epilogue reads x and writes out straight from
+// the accumulator fragments (32-byte runs along time). Channels C .. Cp - 1
+// are exact zeros throughout (zero weights and biases, alphas of 1) and are
+// neither read from x nor stored.
+template <int NC, int MODE>
+__global__ void __launch_bounds__(THREADS_BF16, 1)
+res_unit_tf32_kernel(const ResArgs32 a) {
+  constexpr int TAPS = MODE == CONV1 ? 1 : KSIZE;
+  constexpr int NST = fp32_stages(MODE);
+  constexpr int SLICE = fp32_slice_bytes(NC);  // hi, then lo at + NC * 128
+  constexpr int BATCH = 8;             // staging: (row block, column block) pairs a lane loads at once
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ uint64_t bars[2 * MAX_SLOTS + 3 * NST_MAX];
+  const uint32_t raw = sa::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // the swizzled slices need 1024-byte alignment
+  unsigned char* base_p = smem_raw + (base - raw);
+  const int C = a.C, Cp = padded_width(C), nci = Cp / KCF, Tn = a.T, dil = a.dil;
+  const int halo = MODE == CONV1 ? 0 : 3 * dil;
+  const int R = staged_rows(halo);
+  const int stage_bytes = 2 * R * 128;  // hi: 8 column blocks of R rows x 16 bytes; then lo
+  const uint32_t slots_s = base, stage_s = base + a.slots * SLICE;
+  const uint32_t s2_s = stage_s + NST * stage_bytes;  // FUSED: each warpgroup's s2, NC * 512 bytes
+  auto wfull = [&](int i) { return sa::smem_u32(&bars[i]); };
+  auto wempty = [&](int i) { return sa::smem_u32(&bars[MAX_SLOTS + i]); };
+  auto sfull = [&](int i) { return sa::smem_u32(&bars[2 * MAX_SLOTS + i]); };
+  auto sempty = [&](int i) { return sa::smem_u32(&bars[2 * MAX_SLOTS + NST_MAX + i]); };
+  auto cfull = [&](int i) { return sa::smem_u32(&bars[2 * MAX_SLOTS + 2 * NST_MAX + i]); };
 
-  if (!SLICED) stage_snake1(S1, xb, a1, 0, Cp, C, Tn, t0, halo, ls);
-
-  // dilated k=7 conv: W7 is (7, C, C); tap j reads S1 shifted by j*dil
-  for (int co0 = 0; co0 < C; co0 += CO) {
-    float acc[4][TR];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int co = co0 + cg * 4 + r;
-      const float bias = co < C ? b7[co] : 0.f;
-#pragma unroll
-      for (int i = 0; i < TR; ++i) acc[r][i] = bias;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < a.slots; ++i) {
+      sa::mbar_init(wfull(i), 1);
+      sa::mbar_init(wempty(i), MMA_THREADS);
     }
-    if (SLICED) {
-      for (int ci0 = 0; ci0 < Cp; ci0 += KC) {
-        __syncthreads();  // every thread is done with the previous slice
-        stage_snake1(S1, xb, a1, ci0, KC, C, Tn, t0, halo, ls);
-        for (int j = 0; j < KSIZE; ++j)  // fma_gemm syncs before it reads S1
-          fma_gemm<TR>(w7 + (size_t)j * C * C + ci0, C, KC, S1 + j * dil, ls, co0, C,
-                       C - ci0, As, acc);
-      }
-    } else {
-      for (int j = 0; j < KSIZE; ++j)
-        fma_gemm<TR>(w7 + (size_t)j * C * C, C, Cp, S1 + j * dil, ls, co0, C, C, As, acc);
+    for (int i = 0; i < NST; ++i) {
+      sa::mbar_init(sfull(i), STAGERS);
+      sa::mbar_init(sempty(i), MMA_THREADS);
+      sa::mbar_init(cfull(i), 1);
     }
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int co = co0 + cg * 4 + r;
-      if (co < Cp) {  // rows past C: exact zeros
-#pragma unroll
-        for (int i = 0; i < TR; ++i) Hs[co * TT + tg + 16 * i] = acc[r][i];
-      }
-    }
+    sa::mbar_init_fence();
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < C * TT; e += THREADS) Hs[e] = snake_exact(Hs[e], a2[e / TT]);
 
-  // 1x1 conv + bias + residual
-  for (int co0 = 0; co0 < C; co0 += CO) {
-    float acc[4][TR] = {};
-    fma_gemm<TR>(w1, C, Cp, Hs, TT, co0, C, C, As, acc);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // item -> (batch, tile, chunk of output channels), the chunk fastest
+  auto item_of = [&](int it, int& bb, int& t0, int& nch) {
+    nch = it % a.n_chunks;
+    const int rest = it / a.n_chunks;
+    t0 = (rest % a.n_tiles) * TT;
+    bb = rest / a.n_tiles;
+  };
+
+  if (warp == 0) {
+    // ---- weight slices, in the order the MMA warpgroups take them ----
+    if (lane != 0) return;
+    int use = 0;
+    auto issue = [&](int slice) {
+      const int st = use % a.slots;
+      sa::mbar_wait(wempty(st), ((use / a.slots) & 1) ^ 1);
+      sa::mbar_arrive_expect_tx(wfull(st), SLICE);
+      sa::bulk_load(slots_s + st * SLICE, a.w + (size_t)slice * (SLICE / 4), SLICE, wfull(st));
+      ++use;
+    };
+    for (int it = blockIdx.x; it < a.n_items; it += gridDim.x) {
+      int bb, t0, nch;
+      item_of(it, bb, t0, nch);
+      for (int kc = 0; kc < nci; ++kc)
+        for (int j = 0; j < TAPS; ++j)
+          issue(MODE == CONV1 ? a.w1_first + nch * nci + kc : (nch * nci + kc) * KSIZE + j);
+      if (MODE == FUSED)
+        for (int kc = 0; kc < nci; ++kc) issue(a.w1_first + kc);
+    }
+    return;
+  }
+
+  if (warp < 4) {
+    // ---- staging, by warps 1-3: chunk q of this block's sequence is item
+    // q / nci, input channels 32 (q % nci) on ----
+    const int sid = threadIdx.x - 32, sw = sid >> 5;
+    const int my_items = a.n_items > (int)blockIdx.x ? (a.n_items - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+    const int n_mine = my_items * nci;
+    if (MODE == CONV1) {
+      // one bulk copy a chunk from the scratch into the hi half of its
+      // stage, one chunk ahead; then split in place, lo beside it
+      auto fetch = [&](int q) {
+        if (sid != 0 || q >= n_mine) return;
+        const int st = q % NST;
+        int bb, t0, nch;
+        item_of(blockIdx.x + (q / nci) * gridDim.x, bb, t0, nch);
+        const float* blk =
+            a.src + (((size_t)bb * a.n_tiles + t0 / TT) * nci + q % nci) * (TT * KCF);
+        sa::mbar_wait(sempty(st), ((q / NST) & 1) ^ 1);
+        sa::mbar_arrive_expect_tx(cfull(st), TT * KCF * 4);
+        sa::bulk_load(stage_s + st * stage_bytes, blk, TT * KCF * 4, cfull(st));
+      };
+      fetch(0);
+      for (int q = 0; q < n_mine; ++q) {
+        fetch(q + 1);
+        const int st = q % NST;
+        sa::mbar_wait(cfull(st), (q / NST) & 1);
+        uint4* hi = reinterpret_cast<uint4*>(base_p + (stage_s - base) + st * stage_bytes);
+        uint4* lo = hi + R * 8;
+        for (int i = sid; i < R * 8; i += STAGERS) {
+          const uint4 v = hi[i];
+          uint4 h, l;
+          sa::split_tf32(__uint_as_float(v.x), h.x, l.x);
+          sa::split_tf32(__uint_as_float(v.y), h.y, l.y);
+          sa::split_tf32(__uint_as_float(v.z), h.z, l.z);
+          sa::split_tf32(__uint_as_float(v.w), h.w, l.w);
+          hi[i] = h;
+          lo[i] = l;
+        }
+        sa::fence_proxy_async();  // the staged rows are wgmma operands
+        sa::mbar_arrive(sfull(st));
+      }
+      return;
+    }
+    // FUSED, CONV7: time rows t0 - halo .. t0 - halo + R - 1 of 32 channels,
+    // the conv's zero padding outside the sequence (snake(0) = 0), zeros past
+    // C. Pair p is column block p % 8 (four channels) of the 32-row block
+    // p / 8; a lane makes one row of it: four loads along time (coalesced),
+    // the snake, and a 16-byte store to each of hi and lo.
+    const int npairs = 8 * ((R + 31) / 32);
+    for (int q = 0; q < n_mine; ++q) {
+      int bb, t0, nch;
+      item_of(blockIdx.x + (q / nci) * gridDim.x, bb, t0, nch);
+      const int kc = q % nci, st = q % NST, tb = t0 - halo;
+      const float* xb = a.src + (size_t)bb * C * Tn;
+      sa::mbar_wait(sempty(st), ((q / NST) & 1) ^ 1);
+      unsigned char* hi_p = base_p + (stage_s - base) + st * stage_bytes;
+      unsigned char* lo_p = hi_p + R * 128;
+      for (int p0 = sw; p0 < npairs; p0 += 3 * BATCH) {
+        float v[BATCH][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int co = co0 + cg * 4 + r;
-      if (co >= C) continue;
+        for (int bi = 0; bi < BATCH; ++bi) {
+          const int p = p0 + 3 * bi, u = (p >> 3) * 32 + lane, t = tb + u;
+          const bool in = p < npairs && u < R && t >= 0 && t < Tn;
 #pragma unroll
-      for (int i = 0; i < TR; ++i) {
-        const int t = t0 + tg + 16 * i;
-        if (t < Tn) {
-          const size_t idx = (size_t)co * Tn + t;
-          ob[idx] = acc[r][i] + b1[co] + xb[idx];
+          for (int i = 0; i < 4; ++i) {
+            const int c = kc * KCF + (p & 7) * 4 + i;
+            v[bi][i] = in && c < C ? __ldg(xb + (size_t)c * Tn + t) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int bi = 0; bi < BATCH; ++bi) {
+          const int p = p0 + 3 * bi, kb = p & 7, u = (p >> 3) * 32 + lane;
+          if (p >= npairs || u >= R) continue;
+          uint32_t h[4], l[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            sa::split_tf32(snake_exact(v[bi][i], a.a_in[kc * KCF + kb * 4 + i]), h[i], l[i]);
+          *reinterpret_cast<uint4*>(hi_p + kb * R * 16 + u * 16) = make_uint4(h[0], h[1], h[2], h[3]);
+          *reinterpret_cast<uint4*>(lo_p + kb * R * 16 + u * 16) = make_uint4(l[0], l[1], l[2], l[3]);
         }
       }
+      sa::fence_proxy_async();  // the staged rows are wgmma operands
+      sa::mbar_arrive(sfull(st));
+    }
+    return;
+  }
+
+  // ---- MMA warpgroups: per chunk and tap, four k steps of three wgmma
+  // (lo . hi, hi . lo, hi . hi) into the partial sum, one commit group per
+  // tap, the previous group retired (and its slice freed) as the next is
+  // issued; every PROMOTE chunks the partial sum joins acc ----
+  constexpr int PROMOTE = MODE == CONV1 ? PROMOTE_1X1 : PROMOTE_K7;
+  const int wg = (warp >> 2) - 1, wl = warp & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  int wuse = 0, suse = 0;
+  int prev_slot = -1, prev_stage = -1;
+  auto retire_prev = [&]() {
+    if (prev_slot >= 0) sa::mbar_arrive(wempty(prev_slot));
+    if (prev_stage >= 0) sa::mbar_arrive(sempty(prev_stage));
+  };
+  // accumulator element e of 8-channel block j: row (of the 128-row tile)
+  // 64 wg + 16 wl + g + 8 (e / 2), channel 8 j + 2 tq + e % 2
+  auto row_of = [&](int e) { return 64 * wg + 16 * wl + g + 8 * (e >> 1); };
+  float acc[NC / 2], part[NC / 2];
+  for (int it = blockIdx.x; it < a.n_items; it += gridDim.x) {
+    int bb, t0, nch;
+    item_of(it, bb, t0, nch);
+    const int co0 = nch * NC;
+#pragma unroll
+    for (int j = 0; j < NC / 8; ++j) {
+      const float b0 = a.bias[co0 + 8 * j + 2 * tq], b1v = a.bias[co0 + 8 * j + 2 * tq + 1];
+      acc[4 * j] = acc[4 * j + 2] = b0;
+      acc[4 * j + 1] = acc[4 * j + 3] = b1v;
+    }
+    for (int kc = 0; kc < nci; ++kc) {
+      const int st = suse % NST;
+      sa::mbar_wait(sfull(st), (suse / NST) & 1);
+      const uint32_t ahi = stage_s + st * stage_bytes + (64 * wg) * 16, alo = ahi + R * 128;
+      for (int j = 0; j < TAPS; ++j) {
+        const int slot = wuse % a.slots;
+        sa::mbar_wait(wfull(slot), (wuse / a.slots) & 1);
+        const uint32_t bhi = slots_s + slot * SLICE, blo = bhi + NC * 128;
+        sa::pin_regs(part);
+        sa::wgmma_fence();
+        const uint32_t off = j * dil * 16;  // the tap's shift: j dil rows
+        const int fresh = kc % PROMOTE == 0 && j == 0;
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint32_t ka = off + 2 * ks * R * 16;
+          wgmma_3xtf32(part, sa::wgmma_desc_plain(ahi + ka, R * 16, 128),
+                       sa::wgmma_desc_plain(alo + ka, R * 16, 128),
+                       sa::wgmma_desc(bhi + ks * 32, 16, 1024),
+                       sa::wgmma_desc(blo + ks * 32, 16, 1024), !(fresh && ks == 0));
+        }
+        sa::wgmma_commit();
+        sa::wgmma_wait<1>();  // part is read only after wait<0> below
+        retire_prev();
+        prev_slot = slot;
+        prev_stage = j == TAPS - 1 ? st : -1;
+        ++wuse;
+      }
+      ++suse;
+      if ((kc + 1) % PROMOTE == 0 || kc == nci - 1) {
+        sa::wgmma_wait<0>();
+        sa::pin_regs(part);
+        retire_prev();
+        prev_slot = prev_stage = -1;
+#pragma unroll
+        for (int i = 0; i < NC / 2; ++i) acc[i] += part[i];
+      }
+    }
+
+    // out = v + x for channels co0 .. co0 + NC - 1 below C and rows below T
+    auto store_out = [&](const float (&v)[NC / 2]) {
+      const float* xb = a.x + (size_t)bb * C * Tn;
+      float* ob = a.dst + (size_t)bb * C * Tn;
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = co0 + 8 * j + 2 * tq + (e & 1), t = t0 + row_of(e);
+          if (c < C && t < Tn) {
+            const size_t idx = (size_t)c * Tn + t;
+            ob[idx] = v[4 * j + e] + __ldg(xb + idx);
+          }
+        }
+    };
+    if (MODE == CONV7) {
+      // s2 = snake(h), every row and channel of the tile, into the scratch
+      // block of (batch, tile, 32-channel chunk): column block (c % 32) / 4
+      // of 128 rows x 16 bytes
+      float* blk0 = a.dst + ((size_t)bb * a.n_tiles + t0 / TT) * nci * (TT * KCF);
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = co0 + 8 * j + 2 * tq + (e & 1);
+          blk0[(c / KCF) * (TT * KCF) + ((c % KCF) / 4) * (TT * 4) + row_of(e) * 4 + (c & 3)] =
+              snake_exact(acc[4 * j + e], a.a_out[c]);
+        }
+    } else if (MODE == CONV1) {
+      store_out(acc);
+    } else {
+      // FUSED: s2 = snake(h), split, into this warpgroup's tile (column block
+      // c / 4 of 64 rows x 16 bytes, hi then lo): the A operand of the 1x1
+      // product, whose slices follow the k7 slices in the ring
+      float* s2_hi = reinterpret_cast<float*>(base_p + (s2_s - base) + wg * (NC * 512));
+      float* s2_lo = s2_hi + NC * 64;
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * tq + (e & 1), off = (c / 4) * 256 + (row_of(e) - 64 * wg) * 4 + (c & 3);
+          uint32_t h, l;
+          sa::split_tf32(snake_exact(acc[4 * j + e], a.a_out[c]), h, l);
+          s2_hi[off] = __uint_as_float(h);
+          s2_lo[off] = __uint_as_float(l);
+        }
+      sa::fence_proxy_async();
+      sa::named_barrier(2 + wg, WG_THREADS);  // the warpgroup's s2 is written
+      float acc2[NC / 2];
+#pragma unroll
+      for (int j = 0; j < NC / 8; ++j) {
+        const float b0 = a.b1[8 * j + 2 * tq], b1v = a.b1[8 * j + 2 * tq + 1];
+        acc2[4 * j] = acc2[4 * j + 2] = b0;
+        acc2[4 * j + 1] = acc2[4 * j + 3] = b1v;
+      }
+      const uint32_t shi = s2_s + wg * (NC * 512), slo = shi + NC * 256;
+      for (int kc = 0; kc < nci; ++kc) {  // at most 64 input values: no promotion
+        const int slot = wuse % a.slots;
+        sa::mbar_wait(wfull(slot), (wuse / a.slots) & 1);
+        const uint32_t bhi = slots_s + slot * SLICE, blo = bhi + NC * 128;
+        sa::pin_regs(acc2);
+        sa::wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {
+          const uint32_t ka = (kc * 8 + 2 * ks) * 64 * 16;
+          wgmma_3xtf32(acc2, sa::wgmma_desc_plain(shi + ka, 64 * 16, 128),
+                       sa::wgmma_desc_plain(slo + ka, 64 * 16, 128),
+                       sa::wgmma_desc(bhi + ks * 32, 16, 1024),
+                       sa::wgmma_desc(blo + ks * 32, 16, 1024), 1);
+        }
+        sa::wgmma_commit();
+        sa::wgmma_wait<0>();
+        sa::pin_regs(acc2);
+        sa::mbar_arrive(wempty(slot));
+        ++wuse;
+      }
+      store_out(acc2);
     }
   }
 }
 
-size_t fma_smem_bytes(int C, int TT, int dil, bool sliced) {
-  const size_t s1_rows = sliced ? KC : padded_width(C);
-  return sizeof(float) *
-         ((size_t)KC * LA + s1_rows * (TT + 6 * dil) + (size_t)padded_width(C) * TT);
+size_t fp32_smem_bytes(int NC, int mode, int slots, int halo) {
+  return 1024 + (size_t)slots * fp32_slice_bytes(NC) +
+         (size_t)fp32_stages(mode) * 2 * staged_rows(halo) * 128 +
+         (mode == FUSED ? (size_t)NC * 1024 : 0);
 }
 
-// ---------------------------------------------------------------- host side
-
-// The time tile of the kernel that stages every channel's s1; where none
-// fits, minus the tile of the SLICED variant; 0 where neither fits.
-int pick_tile_fp32(int C, int dil) {
-  for (int tt : {64, 32, 16})
-    if (fma_smem_bytes(C, tt, dil, false) <= kMaxSmem) return tt;
-  for (int tt : {64, 32, 16})
-    if (fma_smem_bytes(C, tt, dil, true) <= kMaxSmem) return -tt;
-  return 0;
+// Output-channel chunk of the fp32 path for width C: Cp = padded_width(C)
+// itself up to 64 (one fused kernel), else the widest of 128 / 96 / 64 / 32
+// that divides Cp (a k7 and a 1x1 kernel through the scratch). 0 when C < 1.
+int fp32_chunk(int C) {
+  if (C < 1) return 0;
+  const int Cp = padded_width(C);
+  if (Cp <= 64) return Cp;
+  for (int nc : {128, 96, 64})
+    if (Cp % nc == 0) return nc;
+  return 32;
 }
 
-template <int TT_, bool SLICED>
-int launch_fp32(const void* x, const void* w7, const float* b7, const void* w1,
-                const float* b1, const float* a1, const float* a2, void* out, int B, int C,
-                int Tn, int dil, cudaStream_t stream) {
-  dim3 grid((Tn + TT_ - 1) / TT_, B);
-  return sa::launch(res_unit_fma_kernel<TT_, SLICED>, grid, dim3(THREADS),
-                    fma_smem_bytes(C, TT_, dil, SLICED), stream, (const float*)x,
-                    (const float*)w7, b7, (const float*)w1, b1, a1, a2, (float*)out, C, Tn, dil);
+template <int NC, int MODE>
+int launch_tf32(ResArgs32 a, int B, cudaStream_t stream) {
+  constexpr size_t kStatic = 1024;  // the barriers, with room to spare
+  const int halo = MODE == CONV1 ? 0 : 3 * a.dil;
+  const size_t fixed = fp32_smem_bytes(NC, MODE, 0, halo);
+  if (fixed + kStatic > kMaxSmem) return (int)cudaErrorInvalidValue;
+  a.slots = (int)std::min<size_t>(MAX_SLOTS, (kMaxSmem - kStatic - fixed) / fp32_slice_bytes(NC));
+  if (a.slots < 2) return (int)cudaErrorInvalidValue;
+  a.n_tiles = (a.T + TT - 1) / TT;
+  a.n_chunks = MODE == FUSED ? 1 : padded_width(a.C) / NC;
+  a.n_items = B * a.n_tiles * a.n_chunks;
+  const size_t smem = fp32_smem_bytes(NC, MODE, a.slots, halo);
+  const int grid = std::min(a.n_items, sa::num_sms());
+  return sa::launch(res_unit_tf32_kernel<NC, MODE>, dim3(grid), dim3(THREADS_BF16), smem, stream, a);
+}
+
+template <int NC>
+int run_split32(ResArgs32 a, const float* x, const float* b7, const float* b1, float* s2,
+                float* out, int B, cudaStream_t stream) {
+  if (s2 == nullptr) return (int)cudaErrorInvalidValue;
+  a.src = x; a.x = nullptr; a.bias = b7; a.b1 = nullptr; a.dst = s2;
+  int err = launch_tf32<NC, CONV7>(a, B, stream);
+  if (err != 0) return err;
+  a.src = s2; a.x = x; a.bias = b1; a.a_in = nullptr; a.a_out = nullptr; a.dst = out;
+  return launch_tf32<NC, CONV1>(a, B, stream);
 }
 
 }  // namespace
 
-// What the kernel takes for (C, dilation, dtype): in bf16 the output-channel
-// chunk (the padded width itself when one fused kernel does the unit), in
-// fp32 the time tile (negative for the SLICED variant); 0 when it cannot
-// take the shape.
+// What the kernel takes for (C, dilation, dtype): the output-channel chunk
+// (bf16: the padded width itself when one fused kernel does the unit; fp32:
+// the same up to 64 channels); 0 when it cannot take the shape.
 extern "C" int sa_res_unit_plan(int C, int dil, int dtype) {
   if (dil < 1 || C < 1) return 0;
   if (dtype == 1) {
@@ -685,7 +965,10 @@ extern "C" int sa_res_unit_plan(int C, int dil, int dtype) {
                ? nc
                : 0;
   }
-  return pick_tile_fp32(C, dil);
+  const int nc = fp32_chunk(C);
+  auto fits = [&](int mode, int halo) { return fp32_smem_bytes(nc, mode, 2, halo) + 1024 <= kMaxSmem; };
+  if (padded_width(C) <= 64) return fits(FUSED, 3 * dil) ? nc : 0;
+  return fits(CONV7, 3 * dil) && fits(CONV1, 0) ? nc : 0;
 }
 
 // bf16: x, out: (B, C, T) contiguous, T a multiple of 8 (rows of 16-byte
@@ -743,22 +1026,38 @@ extern "C" int sa_fused_residual_unit_bf16(const void* x, const void* w, const f
   }
 }
 
-// fp32: x, out: (B, C, T) contiguous; w7: (7, C_out, C_in); w1: (C_out,
-// C_in); b7, b1, a1, a2: (C,). Any C >= 1 whose tile fits shared memory
-// (with h of every channel in it: C up to ~3,300 at dilation 9).
-extern "C" int sa_fused_residual_unit(const void* x, const void* w7, const float* b7,
-                                      const void* w1, const float* b1, const float* a1,
-                                      const float* a2, void* out, int B, int C, int T,
-                                      int dil, void* stream) {
-  const int tt = sa_res_unit_plan(C, dil, 0);
-  if (tt == 0 || T < 1) return (int)cudaErrorInvalidValue;
+// fp32: x, out: (B, C, T) contiguous, any T >= 1; w: the tiled weights (see
+// ops/fused_conv.py::tile_weights_fp32, with the chunk sa_res_unit_plan
+// gives); b7, b1: (Cp,) float32, zero past C; a1, a2: (Cp, 2) float32 alpha
+// pairs as in bf16; s2: a float32 scratch of B x ceil(T / 128) x Cp x 128
+// when Cp > 64 (else unused). Any C whose staging fits shared memory (every
+// C up to 1,024 at dilations 1, 3 and 9).
+extern "C" int sa_fused_residual_unit(const void* x, const void* w, const float* b7,
+                                      const float* b1, const float* a1, const float* a2,
+                                      void* s2, void* out, int B, int C, int T, int dil,
+                                      void* stream) {
+  const int nc = sa_res_unit_plan(C, dil, 0);
+  if (nc == 0 || T < 1) return (int)cudaErrorInvalidValue;
+  ResArgs32 a{};
+  a.w = (const float*)w;
+  a.a_in = (const float2*)a1;
+  a.a_out = (const float2*)a2;
+  a.C = C;
+  a.T = T;
+  a.dil = dil;
+  const int Cp = padded_width(C);
+  a.w1_first = (Cp / nc) * (Cp / KCF) * KSIZE;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (tt) {
-    case 64: return launch_fp32<64, false>(x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
-    case 32: return launch_fp32<32, false>(x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
-    case 16: return launch_fp32<16, false>(x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
-    case -64: return launch_fp32<64, true>(x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
-    case -32: return launch_fp32<32, true>(x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
-    default: return launch_fp32<16, true>(x, w7, b7, w1, b1, a1, a2, out, B, C, T, dil, s);
+  const float* xf = (const float*)x;
+  float *sf = (float*)s2, *of = (float*)out;
+  if (Cp <= 64) {  // one fused kernel
+    a.src = xf; a.x = xf; a.bias = b7; a.b1 = b1; a.dst = of;
+    return nc == 32 ? launch_tf32<32, FUSED>(a, B, s) : launch_tf32<64, FUSED>(a, B, s);
+  }
+  switch (nc) {
+    case 32: return run_split32<32>(a, xf, b7, b1, sf, of, B, s);
+    case 64: return run_split32<64>(a, xf, b7, b1, sf, of, B, s);
+    case 96: return run_split32<96>(a, xf, b7, b1, sf, of, B, s);
+    default: return run_split32<128>(a, xf, b7, b1, sf, of, B, s);
   }
 }

@@ -20,10 +20,18 @@ quarter of the keys by TMA, normalises and rotates them once, computes its
 scores once with wgmma and keeps them in registers; the warpgroups trade
 their rows' max and sum once, so p is normalised before it is rounded to bf16
 for p . v (wgmma, p as the register operand), and the four partial outputs
-are summed in shared memory. In fp32 the products are FMAs with the scores in
-shared memory. With no mask the kernel gets a null mask pointer; norm weights
-and rope tables that are already float32 and contiguous are passed as they
-are.
+are summed in shared memory. In fp32 a tile of the same 64 query rows is
+split over a cluster of two blocks, each owning half the keys (each key
+normalised once a tile; 8 warps of 16 rows x a quarter of the keys), and
+both products run on the tensor cores in split TF32 ("3xTF32": x = hi + lo
+in TF32, a product hi.hi + hi.lo + lo.hi in fp32; mma.sync m16n8k8), which
+holds 1e-4 where one TF32 product would not; the scores stay in registers,
+the halves trade their softmax statistics and partial outputs through
+distributed shared memory, and the kernel's precision does not follow
+torch's allow_tf32 switches. Bound of that path at the main shape: 3 x 0.52
+GFLOP of TF32 products, 3.1 us at 495 TFLOP/s. With no mask the kernel gets
+a null mask pointer; norm weights and rope tables that are already float32
+and contiguous are passed as they are.
 
 `fused_glue_attention` takes the plain PyTorch version for CPU tensors and
 launches the kernel for CUDA tensors (raising if it cannot); it counts its

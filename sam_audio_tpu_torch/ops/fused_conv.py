@@ -21,10 +21,17 @@ that every tap's row shift can address; the weights are tiled once per unit
 (`tile_weights`, cached by `prepared_operands`) and streamed by bulk copies.
 Up to 256 channels one kernel does the whole unit, s2 kept in registers for
 the 1x1 product; wider units run a k7 kernel into a scratch s2 and a 1x1
-kernel, over chunks of output channels (`bf16_chunk`). In fp32 the products
-are FMAs over a time tile that holds every channel's snaked input; where
-that does not fit (the decoder's 768 channels at dilation 9), a variant
-stages 32 input channels at a time. A ragged T is padded to a multiple of 8 for the bf16 kernel (zeros
+kernel, over chunks of output channels (`bf16_chunk`). In fp32 the unit is
+the same implicit GEMM on the tensor cores in split TF32 ("3xTF32"): each
+operand is x = hi + lo in TF32 (`split_tf32`; the weights are split and
+tiled once per unit, `tile_weights_fp32`), a product is hi.hi + hi.lo +
+lo.hi accumulated in fp32, which holds 1e-4 where one TF32 product (about
+three decimal digits) would not; the kernel's precision is its own and does
+not follow torch's allow_tf32 switches. Up to 64 channels one kernel does
+the unit, wider ones a k7 and a 1x1 kernel through a scratch s2 kept in the
+kernels' staged layout (`fp32_chunk`). Bound, fp32: the 36 launches' 2.28
+TFLOP are 6.84 TFLOP of TF32 products, 13.8 ms at 495 TFLOP/s.
+A ragged T is padded to a multiple of 8 for the bf16 kernel (zeros
 past T are the conv's own padding). Any C >= 1 runs: both kernels compute
 `padded_width(C)` channels (a multiple of 32), the extra ones exact zeros
 (zero weight rows and columns, zero biases, alphas of 1, zeros staged), and
@@ -90,6 +97,72 @@ def padded_width(c: int) -> int:
     return -(-c // 32) * 32
 
 
+def fp32_chunk(c: int) -> int:
+    """Output channels the fp32 kernel computes per work item for width c:
+    padded_width(c) itself up to 64 (one kernel, s2 kept on chip), else the
+    widest of 128 / 96 / 64 / 32 dividing padded_width(c) (a k7 kernel writes
+    s2 to a scratch, a 1x1 kernel reads it). 0 when c < 1. Mirrors fp32_chunk
+    in csrc/fused_conv.cu."""
+    if c < 1:
+        return 0
+    cp = padded_width(c)
+    if cp <= 64:
+        return cp
+    return next(nc for nc in (128, 96, 64, 32) if cp % nc == 0)
+
+
+_TF32_MAX_BITS = 0x7F7FE000   # the largest finite TF32, as float32 bits
+
+
+def _round_tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 (10 explicit mantissa bits) to nearest, ties
+    away from zero, as cvt.rna.tf32.f32 does; a finite x that would round
+    past the largest TF32 gives the largest (with x's sign), so that the
+    split below stays exact near float32's maximum."""
+    bits = x.contiguous().view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    rounded = torch.clamp_max((mag + 0x1000) & ~0x1FFF, _TF32_MAX_BITS)
+    mag = torch.where(mag < 0x7F800000, rounded, mag)   # inf and NaN as they are
+    return (mag | (bits & ~0x7FFFFFFF)).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo): float32 x as the sum of two TF32 values (float32 with the low
+    13 mantissa bits zero), hi = rna(x), lo = rna(x - hi): the fp32 kernel's
+    weights, split once on the host. |hi + lo - x| <= 2^-22 |x| for normal
+    x, and at most half TF32's smallest step (2^-137) below that. (On the
+    card the kernels leave lo = x - hi whole and the tensor cores read its
+    TF32 part: 2^-21; csrc/tf32.cuh.)"""
+    x = x.float()
+    hi = _round_tf32(x)
+    return hi, _round_tf32(x - hi)
+
+
+def tile_weights_fp32(w7: torch.Tensor, w1: torch.Tensor, nc: int) -> torch.Tensor:
+    """The fp32 kernel's weight slices, in the order it streams them: for each
+    chunk of nc output channels, for each 32-deep chunk of input channels,
+    the seven k7 taps; then the 1x1 weight by the same chunks, one slice per
+    input chunk. A slice is nc rows (output channels) x 32 input channels,
+    split (`split_tf32`) into its hi part, then its lo part; each row is 128
+    bytes with the 128-byte swizzle of a wgmma operand: the 16-byte piece p
+    (four channels) of row r is stored at piece p ^ (r % 8). Rows and columns
+    run to padded_width(C), zero past C. w7: (7, C_out, C_in), w1: (C_out,
+    C_in). Returns the slices as one flat float32 tensor."""
+    c = w7.shape[1]
+    cp = padded_width(c)
+
+    def slices(w):   # (taps, C_out, C_in) -> (chunks * nci * taps, 2, nc, 8, 4), swizzled
+        w = F.pad(w.float(), (0, cp - c, 0, cp - c))
+        taps = w.shape[0]
+        hl = torch.stack(split_tf32(w))
+        hl = hl.reshape(2, taps, cp // nc, nc, cp // 32, 8, 4).permute(2, 4, 1, 0, 3, 5, 6)
+        hl = hl.reshape(-1, nc, 8, 4)
+        src = torch.arange(8, device=w.device)[None, :] ^ (torch.arange(nc, device=w.device) % 8)[:, None]
+        return torch.gather(hl, 2, src[None, :, :, None].expand(hl.shape[0], nc, 8, 4))
+
+    return torch.cat([slices(w7).reshape(-1), slices(w1[None]).reshape(-1)])
+
+
 def bf16_chunk(c: int) -> int:
     """Output channels the bf16 kernel computes per work item for width c: c
     itself for c = 32, 64, 96, 128, 192 or 256 (the whole unit in one kernel,
@@ -153,10 +226,10 @@ def _weights_version(params):
 
 def prepared_operands(params, compute_dtype):
     """(weights, b7, b1, a1, a2) for the kernel, made once per unit and
-    dtype: in bf16 the tiled slices (`tile_weights`), the biases padded to
-    padded_width(C) with zeros and each alpha, padded with ones, as (C_pad, 2)
-    pairs (alpha, 1 / (alpha + 1e-9)); in fp32 (w7, w1) and the alphas as
-    `residual_unit_operands` gives them; all fp32 but the weights."""
+    dtype: the tiled slices (bf16: `tile_weights`; fp32: `tile_weights_fp32`,
+    split into TF32 hi and lo), the biases padded to padded_width(C) with
+    zeros and each alpha, padded with ones, as (C_pad, 2) pairs (alpha, 1 /
+    (alpha + 1e-9)); all fp32 but the bf16 slices."""
     key = params["conv1"]["weight"]
     entry = _prepared.get(id(key))
     if entry is None or entry[0]() is not key:
@@ -173,13 +246,13 @@ def prepared_operands(params, compute_dtype):
         params, torch.empty((1, c, 0), device=key.device), compute_dtype)
     if compute_dtype == torch.bfloat16:
         weights = tile_weights(w7, w1, bf16_chunk(c), conv1_chunk(c))
-        pad = padded_width(c) - c
-        b7, b1 = (F.pad(b, (0, pad)) for b in (b7, b1))
-        # (alpha, 1 / (alpha + 1e-9)) a channel: the snake's division, once
-        a1, a2 = (torch.stack([a, 1.0 / (a + 1e-9)], -1).contiguous()
-                  for a in (F.pad(a, (0, pad), value=1.0) for a in (a1, a2)))
     else:
-        weights = (w7, w1)
+        weights = tile_weights_fp32(w7, w1, fp32_chunk(c))
+    pad = padded_width(c) - c
+    b7, b1 = (F.pad(b, (0, pad)) for b in (b7, b1))
+    # (alpha, 1 / (alpha + 1e-9)) a channel: the snake's division, once
+    a1, a2 = (torch.stack([a, 1.0 / (a + 1e-9)], -1).contiguous()
+              for a in (F.pad(a, (0, pad), value=1.0) for a in (a1, a2)))
     ops = (weights, b7, b1, a1, a2)
     per_unit[compute_dtype] = (version, ops)
     return ops
@@ -237,10 +310,14 @@ def fused_residual_unit(params, x: torch.Tensor, dilation: int,
             out = out[..., :t].contiguous()
     else:
         out = torch.empty_like(xc)
-        w7, w1 = weights
+        # wider than 64 channels the k7 kernel hands s2 to the 1x1 kernel in
+        # 128-row blocks of every padded channel
+        cp = padded_width(c)
+        s2 = None if cp <= 64 else torch.empty(b * -(-t // 128) * cp * 128,
+                                               dtype=torch.float32, device=x.device)
         err = lib.sa_fused_residual_unit(
-            P(xc), P(w7), P(b7), P(w1), P(b1), P(a1), P(a2), P(out),
-            b, c, t, dilation, _build.stream_of(xc))
+            P(xc), P(weights), P(b7), P(b1), P(a1), P(a2), None if s2 is None else P(s2),
+            P(out), b, c, t, dilation, _build.stream_of(xc))
     _build.check(err, "fused_residual_unit")
     fused_residual_unit.launches += 1
     return out

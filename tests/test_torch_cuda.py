@@ -98,6 +98,34 @@ def test_cuda_fused_glue_attention_lengths_and_batches(cuda, dtype, tol, b, t):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h", [(1, 16), (4, 16), (8, 16), (4, H)])
+def test_cuda_fused_glue_attention_fp32_serving_shapes(cuda, b, h):
+    """The fp32 body (3xTF32 tensor-core products) at T = 250, the quantized
+    serving modes' shape (B = 1 a separate, 4 a streamed group, 8 at k = 8;
+    16 heads): within 1e-4 of the plain version, a padded row (and where B
+    > 1 a fully masked row, which averages V over the 256 padded keys), two
+    runs bit-equal."""
+    t = 250
+    g = torch.Generator(device=cuda).manual_seed(b * 100 + h)
+    q, k, v = (torch.randn(b, t, h, D, generator=g, device=cuda) for _ in range(3))
+    qw, kw = (1 + 0.1 * torch.randn(D, generator=g, device=cuda) for _ in range(2))
+    cos, sin = precompute_rope(D, t, 20000, device=cuda)
+    mask = torch.ones((b, t), dtype=torch.bool, device=cuda)
+    mask[0, t * 3 // 4:] = False
+    if b > 1:
+        mask[1, :] = False
+    n = fused_glue_attention.launches
+    out = fused_glue_attention(q, k, v, qw, kw, cos, sin, mask)
+    assert fused_glue_attention.launches == n + 1
+    ref = fused_glue_attention_plain(q, k, v, qw, kw, cos, sin, mask)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    if b > 1:
+        torch.testing.assert_close(out[1], (v[1].sum(0) / 256).expand(t, h, D),
+                                   rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, fused_glue_attention(q, k, v, qw, kw, cos, sin, mask))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t", [250, 512])
 def test_cuda_fused_glue_attention_no_mask_equals_all_true(cuda, dtype, t):
@@ -195,14 +223,42 @@ def test_cuda_residual_unit_widths_bf16(cuda, c, dilation, b):
 @pytest.mark.parametrize("dilation", [1, 3, 9])
 @pytest.mark.parametrize("c", [64, 192, 512, 4, 8, 16, 24, 48, 80, 384, 768, 1000])
 def test_cuda_residual_unit_widths_fp32(cuda, c, dilation):
-    """768 and 1000 channels at dilation 9 (and 1000 at 3) take the variant
-    that stages 32 input channels at a time."""
+    """The fp32 body (3xTF32 tensor-core products) at widths fused (padded to
+    32 or 64) and split over output-channel chunks (1000: padded to 1024),
+    at a ragged T; two runs give the same bits."""
     p = _unit(cuda, c, c + dilation)
     x = torch.randn(2, c, 3001, generator=torch.Generator(device=cuda).manual_seed(c),
                     device=cuda)
     out = fused_residual_unit(p, x, dilation, torch.float32)
     ref = fused_residual_unit_plain(*residual_unit_operands(p, x, torch.float32), dilation)
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, fused_residual_unit(p, x, dilation, torch.float32))
+
+
+# (C, T) of the codec's residual units on a 10 s 48 kHz clip (chip_smoke.py's
+# ENCODER_SHAPES + DECODER_SHAPES): the fp32 path's 36 launches a separate
+MAIN_SHAPES = [(64, 480000), (128, 240000), (256, 30000), (512, 3000),
+               (768, 3000), (384, 30000), (192, 240000), (96, 480000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+@pytest.mark.parametrize("b,c,t", [(1, c, t) for c, t in MAIN_SHAPES]
+                         + [(8, 256, 30000), (8, 384, 30000)])
+def test_cuda_residual_unit_main_shapes_fp32(cuda, b, c, t, dilation):
+    """The fp32 body at every main-path shape (B = 1; B = 8 at one encoder
+    and one decoder shape, the judge's k = 8 encode): one launch counted,
+    within 1e-4 of the plain version, two runs bit-equal."""
+    p = _unit(cuda, c, c + dilation)
+    x = torch.randn(b, c, t, generator=torch.Generator(device=cuda).manual_seed(c + b),
+                    device=cuda)
+    n = fused_residual_unit.launches
+    out = fused_residual_unit(p, x, dilation, torch.float32)
+    assert fused_residual_unit.launches == n + 1
+    ref = fused_residual_unit_plain(*residual_unit_operands(p, x, torch.float32), dilation)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    del ref
+    assert torch.equal(out, fused_residual_unit(p, x, dilation, torch.float32))
 
 
 @pytest.mark.cuda

@@ -25,7 +25,9 @@ from sam_audio_tpu.ops.rope import precompute_rope as jax_rope
 from sam_audio_tpu_torch.checkpoint import params_from_numpy
 from sam_audio_tpu_torch.ops import _build
 from sam_audio_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from sam_audio_tpu_torch.ops.conv import snake_f32
 from sam_audio_tpu_torch.ops.fused_attention import (
+    _norm_rope,
     fused_glue_attention,
     fused_glue_attention_plain,
     fused_glue_attention_split_keys,
@@ -33,12 +35,15 @@ from sam_audio_tpu_torch.ops.fused_attention import (
 from sam_audio_tpu_torch.ops.fused_conv import (
     bf16_chunk,
     conv1_chunk,
+    fp32_chunk,
     fused_residual_unit,
     fused_residual_unit_plain,
     padded_width,
     prepared_operands,
     residual_unit_operands,
+    split_tf32,
     tile_weights,
+    tile_weights_fp32,
 )
 from sam_audio_tpu_torch.ops.rope import precompute_rope
 
@@ -292,3 +297,131 @@ def test_prepared_operands_made_once_per_unit():
     assert b is not a
     p["conv1"]["bias"].add_(1)
     assert prepared_operands(p, torch.bfloat16) is not b
+
+
+# ---- the fp32 bodies' split-TF32 ("3xTF32") arithmetic, on the CPU ----
+
+
+def test_split_tf32_recovers_x():
+    """x = hi + lo with hi and lo TF32 (the low 13 mantissa bits zero), hi
+    rounded to nearest with ties away from zero (cvt.rna.tf32.f32):
+    |hi + lo - x| <= 2^-22 |x| for normal x, and at most half TF32's smallest
+    step (2^-137) below that; ±0, subnormals, the largest floats (whose
+    rounding would overflow: hi stops at TF32's largest) and inf."""
+    rng = np.random.RandomState(0)
+    tiny, big = np.finfo(np.float32).tiny, np.finfo(np.float32).max
+    x = np.concatenate([
+        rng.randn(4096) * 10.0 ** rng.randint(-30, 30, 4096),
+        [0.0, -0.0, tiny, -tiny, tiny / 3, -tiny / 7, 1e-45, 3e-39, big, -big,
+         big * 0.99997, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12, 1.0 - 2.0 ** -24]]).astype(np.float32)
+    xt = torch.tensor(x)
+    hi, lo = split_tf32(xt)
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    err = (hi.double() + lo.double() - xt.double()).abs()
+    bound = torch.maximum(xt.double().abs() * 2.0 ** -22, torch.tensor(2.0 ** -137, dtype=torch.float64))
+    assert bool((err <= bound).all())
+    assert torch.equal(torch.signbit(hi[x == 0]), torch.signbit(xt[x == 0]))
+    assert float(hi[-3]) == 1.0 + 2.0 ** -10   # a tie rounds away from zero
+    assert torch.equal(split_tf32(torch.tensor([np.inf, -np.inf]))[0],
+                       torch.tensor([np.inf, -np.inf]))
+
+
+@pytest.mark.parametrize("c,nc", [(4, 32), (32, 32), (48, 64), (64, 64), (80, 96), (96, 96),
+                                  (128, 128), (192, 96), (200, 32), (384, 128), (512, 128),
+                                  (768, 128), (1000, 128), (0, 0)])
+def test_fp32_chunk_plan(c, nc):
+    """One kernel (chunk = the padded width) up to 64 channels; wider units
+    split into k7 and 1x1 kernels over output-channel chunks that divide
+    the padded width."""
+    assert fp32_chunk(c) == nc
+
+
+@pytest.mark.parametrize("c", [8, 64, 80, 192, 200])
+def test_tile_weights_fp32_order_and_swizzle(c):
+    """Slice ((n * nci + kc) * 7 + j) is tap j, output channels of chunk n,
+    input channels 32 kc .. 32 kc + 31 (zero past C), split into hi then lo;
+    the 1x1 slices follow by the same chunks; the four-channel piece p of
+    row r is stored at p ^ (r % 8); rows run to padded_width(C), zero past C;
+    hi + lo is each weight within 2^-22."""
+    g = torch.Generator().manual_seed(c)
+    w7, w1 = torch.randn(7, c, c, generator=g), torch.randn(c, c, generator=g)
+    nc, cp = fp32_chunk(c), padded_width(c)
+    nci, n7 = cp // 32, (cp // nc) * (cp // 32) * 7
+    tiles = tile_weights_fp32(w7, w1, nc)
+    assert tiles.dtype == torch.float32
+    assert tiles.numel() == (n7 + (cp // nc) * nci) * 2 * nc * 32
+    pieces = tiles.reshape(-1, 2, nc, 8, 4)
+    src = torch.arange(8)[None, :] ^ (torch.arange(nc) % 8)[:, None]
+    slices = torch.gather(pieces, 3, src[None, None, :, :, None].expand_as(pieces))
+    slices = slices.reshape(-1, 2, nc, 32)
+    pad7 = torch.nn.functional.pad(w7, (0, cp - c, 0, cp - c))
+    pad1 = torch.nn.functional.pad(w1, (0, cp - c, 0, cp - c))
+    for kc in range(nci):
+        cols = slice(32 * kc, 32 * kc + 32)
+        for n in range(cp // nc):
+            rows = slice(n * nc, (n + 1) * nc)
+            for j in range(7):
+                hi, lo = slices[(n * nci + kc) * 7 + j]
+                assert torch.equal(hi, split_tf32(pad7[j, rows, cols])[0])
+                assert torch.equal(lo, split_tf32(pad7[j, rows, cols])[1])
+            hi, lo = slices[n7 + n * nci + kc]
+            assert torch.equal(hi, split_tf32(pad1[rows, cols])[0])
+            err = (hi.double() + lo.double() - pad1[rows, cols].double()).abs()
+            assert bool((err <= pad1[rows, cols].double().abs() * 2.0 ** -22).all())
+
+
+def _split_card(x):
+    """An operand as the kernels split it on the card: hi = rna(x) in TF32,
+    lo = x - hi of which a TF32 product reads the upper 19 bits (taken here
+    as truncated, the worse of the ways hardware may read them)."""
+    hi = split_tf32(x)[0]
+    return hi, ((x - hi).view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the fp32 attention body computes it: each operand split in
+    TF32 and three products (lo . hi, hi . lo, hi . hi) summed in fp32; a
+    product of two TF32 values is exact in fp32."""
+    (ah, al), (bh, bl) = _split_card(a), _split_card(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def test_3xtf32_holds_the_fp32_contract_where_one_tf32_product_does_not():
+    """The split the fp32 bodies run (the weights split on the host, the
+    rest on the card), emulated in plain torch and held against float64 at
+    the two contractions of the main path: the residual
+    unit's dilated k7 conv over 7 x 768 inputs (the decoder's widest unit;
+    weights at 1/sqrt(C), |h| up to ~8) within 1e-5, and the attention's
+    q' k'^T over D = 128 and p . v over 512 keys after `_norm_rope`, the
+    whole softmax(q' k'^T / sqrt(D)) v within 1e-5. One TF32 product (hi .
+    hi alone) misses the kernels' 1e-4 at both."""
+    rng = np.random.RandomState(0)
+    c, t, dil = 768, 64, 9
+    x = torch.tensor(rng.randn(1, c, t).astype(np.float32))
+    alpha = torch.tensor((0.5 + rng.rand(c, 1)).astype(np.float32))
+    w = torch.tensor(((rng.rand(c, c, 7) * 2 - 1) / c ** 0.5).astype(np.float32))
+    s1 = snake_f32(x, alpha, False)
+
+    def conv(u, v):
+        return torch.nn.functional.conv1d(u, v, padding=3 * dil, dilation=dil)
+
+    ref = conv(s1.double(), w.double())
+    (sh, sl), (wh, wl) = _split_card(s1), split_tf32(w)
+    three = (conv(sl, wh) + conv(sh, wl)) + conv(sh, wh)
+    assert float((three.double() - ref).abs().max()) < 1e-5
+    assert float((conv(sh, wh).double() - ref).abs().max()) > 1e-4
+
+    b, t, h = 1, 512, 2
+    q, k, v = (torch.tensor(rng.randn(b, t, h, D).astype(np.float32)) for _ in range(3))
+    qw, kw = (torch.tensor((1 + 0.1 * rng.randn(D)).astype(np.float32)) for _ in range(2))
+    cos, sin = precompute_rope(D, t, 20000)
+    qn = _norm_rope(q, qw, cos, sin, 1e-5).transpose(1, 2)
+    kt = _norm_rope(k, kw, cos, sin, 1e-5).permute(0, 2, 3, 1)
+    vh = v.transpose(1, 2)
+    out64 = torch.softmax(qn.double() @ kt.double() / D ** 0.5, -1) @ vh.double()
+    out3 = _mm_3xtf32(torch.softmax(_mm_3xtf32(qn, kt) / D ** 0.5, -1), vh)
+    assert float((out3.double() - out64).abs().max()) < 1e-5
+    one = split_tf32(qn)[0] @ split_tf32(kt)[0]
+    out1 = split_tf32(torch.softmax(one / D ** 0.5, -1))[0] @ split_tf32(vh)[0]
+    assert float((out1.double() - out64).abs().max()) > 1e-4
