@@ -25,11 +25,15 @@ Phases (any failure exits non-zero):
                kernel and the library call also with the host out of the
                window (`device_ms`: a CUDA graph of the calls, replayed).
                Each kernel's fp32 body is also timed at its paths' shapes
-               (kernel 1 at B = 1, 4, 8 x 250 x 16 heads; kernel 2 at 1125
-               keys; kernel 3 at the 24 main shapes; kernel 4 at 250 tokens)
-               beside its plain version, the library call in fp32 (TF32
-               off) and two labelled bounds: as fp32 FMAs at 67 TFLOP/s and
-               as the three TF32 products of split TF32 at 495.
+               (kernel 1 at B = 1, 4, 8 x 250 x 16 heads; kernel 2 at B = 1
+               and 8 x 1125 keys, its error held and two runs bit-equal;
+               kernel 3 at the 24 main shapes; kernel 4 at 250 and 14 tokens
+               at every DiT shape, its error held and two runs bit-equal,
+               summed over an fp32 separate's launches) beside its plain
+               version, the library call in fp32 (TF32 off) and labelled
+               bounds: as fp32 FMAs at 67 TFLOP/s, as the three TF32
+               products of split TF32 at 495, and for kernel 4 as its own
+               three bf16 products at 989.
                Kernels 1 and 2 under autograd (their Functions: the kernel
                forward, the plain version's VJP) at the training shapes
                (kernel 1: B=4, T=250; kernel 2: B=1, T=1125; bf16 and fp32):
@@ -75,7 +79,14 @@ Phases (any failure exits non-zero):
  10. int4    — quantize(bits=4), separate(k=1) on the 10 s clip (every DiT
                linear through the int4 kernel), held against the exact bf16
                model with the same noise (correlation and SNR).
- 11. int8    — the same probe after quantize(bits=8) of a fresh model.
+ 11. int8    — the same probe after quantize(bits=8) of a fresh model;
+               then that model on phase 6's 45 s clip once (quantized modes
+               run attention in fp32): 512 kernel-2 launches, all fp32 (read
+               at the kernel's ctypes entry), 36 of kernel 3, finite output
+               of the clip's length. Then main's config in fp32 (seed 0):
+               its exact target on the 10 s clip, quantize(bits=4), and the
+               probe against that target: 5,664 kernel-4 launches a run, all
+               fp32, correlation >= 0.5.
  12. visual  — a fresh model of main's weights (its video gate opened to
                0.5: at init it is 0, which would make the video inert) with
                a PE-Core-L14-336 tower (PerceptionEncoderConfig: 24 x 1024,
@@ -243,7 +254,14 @@ TIMED_RUNS = 3
 EVAL_SECONDS = 10.0     # the eval phase's script-local setting "synthetic-10s"
 
 
+T0 = time.perf_counter()
+
+
 def log(*args):
+    """print, flushed; a phase's header line ("[phase] ...") also gets the
+    seconds since the script started, for the script's time budget."""
+    if args and isinstance(args[0], str) and args[0].startswith("["):
+        args = (*args, f"(t={time.perf_counter() - T0:.1f} s)")
     print(*args, flush=True)
 
 
@@ -489,20 +507,32 @@ def check_flash_attention(results):
     bms, by = bound_ms(flops, nbytes)
     log(f"  main shape (1, 1125, 16, 128) bf16: kernel {ms:.4f} ms (device {dev:.4f}), plain "
         f"{plain:.4f} ms, SDPA {lib:.4f} ms (device {lib_dev:.4f}), bound {bms:.5f} ms ({by})")
-    # the fp32 body (FMA products): a quantized separate of a direct clip over 40 s
-    q, k, v = (x.float() for x in (q, k, v))
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    rec = dict(fp32_bounds(flops, 4 * t * h * d * 4 + t),
-               ms=time_ms(lambda: flash_attention(q, k, v, mask)),
-               device_ms=device_ms(lambda: flash_attention(q, k, v, mask)),
-               plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, mask), iters=3),
-               library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
-               library_device_ms=device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)))
-    results["fp32"] = {"(1, 1125, 16, 128)": rec}
-    log(f"  (1, 1125, 16, 128) fp32: kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), "
-        f"plain {rec['plain_ms']:.4f} ms, SDPA {rec['library_ms']:.4f} ms (device "
-        f"{rec['library_device_ms']:.4f}); bound as fp32 FMAs {rec['bound_fma_ms']:.5f} ms, as "
-        f"3xTF32 {rec['bound_3xtf32_ms']:.5f} ms")
+    # the fp32 body (3xTF32 products): a quantized separate of a direct clip
+    # over 40 s (B = 1), a quantized k=8 (B = 8)
+    results["fp32"] = {}
+    for b in (1, 8):
+        q, k, v, mask = _attn_inputs(b, t, h, d, torch.float32, seed=30 + b, masked_rows=False)
+        mask[0, t * 4 // 5:] = False   # a padded row
+        out = flash_attention(q, k, v, mask)
+        require(torch.equal(out, flash_attention(q, k, v, mask)),
+                "flash_attention fp32: two runs on one input differ")
+        err = check_close(f"fp32 B={b} S={t} H={h}", out, flash_attention_plain(q, k, v, mask),
+                          1e-4, 1e-4)
+        results["fp32_err"] = max(results["fp32_err"], err)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        rec = dict(fp32_bounds(b * flops, b * (4 * t * h * d * 4 + t)), max_abs_err=err,
+                   ms=time_ms(lambda: flash_attention(q, k, v, mask)),
+                   device_ms=device_ms(lambda: flash_attention(q, k, v, mask)),
+                   plain_ms=time_ms(lambda: flash_attention_plain(q, k, v, mask), iters=3),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt)),
+                   library_device_ms=device_ms(
+                       lambda: F.scaled_dot_product_attention(qt, kt, vt)))
+        results["fp32"][f"({b}, 1125, 16, 128)"] = rec
+        log(f"  ({b}, 1125, 16, 128) fp32: kernel {rec['ms']:.4f} ms (device "
+            f"{rec['device_ms']:.4f}), plain {rec['plain_ms']:.4f} ms, SDPA "
+            f"{rec['library_ms']:.4f} ms (device {rec['library_device_ms']:.4f}); bound as "
+            f"fp32 FMAs {rec['bound_fma_ms']:.5f} ms, as 3xTF32 {rec['bound_3xtf32_ms']:.5f} ms "
+            f"({rec['bound_3xtf32_by']})")
     check_flash_attention_grad(results)
     results.update(name="flash_attention",
                    per_launch=(ms, plain, lib, bms, by, dev, lib_dev),
@@ -773,7 +803,11 @@ def check_matmul_int4(results, cfg):
     g = torch.Generator(device=DEVICE).manual_seed(13)
     totals = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "flops": 0.0,
               "bytes": 0.0, "dev": 0.0, "lib_dev": 0.0}
-    errs, per_shape = [], []
+    errs, per_shape, fp32_errs = [], [], []
+    # the fp32 body's launch-weighted sums over an fp32 separate
+    fp32_totals = {t: dict.fromkeys(("ms", "device_ms", "plain_ms", "library_ms",
+                                     "library_device_ms", "bound_fma_ms", "bound_3xtf32_ms",
+                                     "bound_3xbf16_ms", "launches"), 0.0) for t in (250, 14)}
     for out, din in ((dim, dim), (ffn, dim), (dim, ffn), (dim, cfg.in_channels)):
         q = quantize_linear_int4({"weight": torch.randn(out, din, generator=g, device=DEVICE)
                                   * din ** -0.5})
@@ -812,33 +846,51 @@ def check_matmul_int4(results, cfg):
             log(f"    kernel {ms:.4f} ms (device {dev:.4f}), plain {plain:.4f} ms, matmul of the "
                 f"dequantized weight {lib:.4f} ms (device {lib_dev:.4f}), bound {bms:.5f} ms "
                 f"({by}); {n} launches at k=1")
-        # the fp32 body (FMA products): an fp32 model after quantize(4), 250 tokens
-        x = torch.randn(250, din, generator=g, device=DEVICE)
+        # the fp32 body (three bf16 products over a split of x): an fp32 model
+        # after quantize(4), 250 tokens and the prompt's 14
         w_deq32 = w_deq.float()
-        rec = dict(fp32_bounds(2 * 250 * din * out,
-                               250 * din * 4 + w4.numel() + s.numel() * 4 + 250 * out * 4),
-                   out=out, din=din, tokens=250, launches_per_separate_k1=k1.get((out, din, 250), 0),
-                   ms=time_ms(lambda: matmul_int4(x, w4, s)),
-                   device_ms=device_ms(lambda: matmul_int4(x, w4, s)),
-                   plain_ms=time_ms(lambda: matmul_int4_plain(x, w4, s), iters=5),
-                   library_ms=time_ms(lambda: torch.matmul(x, w_deq32.t())),
-                   library_device_ms=device_ms(lambda: torch.matmul(x, w_deq32.t())))
-        results.setdefault("fp32", []).append(rec)
-        log(f"    fp32 tokens=250: kernel {rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), plain "
-            f"{rec['plain_ms']:.4f} ms, fp32 matmul of the dequantized weight "
-            f"{rec['library_ms']:.4f} ms (device {rec['library_device_ms']:.4f}); bound as fp32 "
-            f"FMAs {rec['bound_fma_ms']:.5f} ms, as 3xTF32 {rec['bound_3xtf32_ms']:.5f} ms")
-        if (out, din) == (dim, dim):
+        for tokens in (250, 14):
+            x = torch.randn(tokens, din, generator=g, device=DEVICE)
             y = matmul_int4(x, w4, s)
-            ref = matmul_int4_plain(x, w4, s)
-            torch.cuda.synchronize()
-            results["fp32_err"] = check_close(f"fp32 tokens=250 (out, in)=({out}, {din})", y,
-                                              ref, 1e-4, 1e-4)
+            require(torch.equal(y, matmul_int4(x, w4, s)),
+                    "matmul_int4 fp32: two runs on one input differ")
+            err = check_close(f"fp32 tokens={tokens} (out, in)=({out}, {din})", y,
+                              matmul_int4_plain(x, w4, s), 1e-4, 1e-4)
+            fp32_errs.append(err)
+            flops = 2 * tokens * din * out
+            nbytes = tokens * din * 4 + w4.numel() + s.numel() * 4 + tokens * out * 4
+            b3, b3_by = bound_ms(3 * flops, nbytes)
+            n = k1.get((out, din, tokens), 0)
+            rec = dict(fp32_bounds(flops, nbytes), bound_3xbf16_ms=b3, bound_3xbf16_by=b3_by,
+                       out=out, din=din, tokens=tokens, launches_per_separate_k1=n,
+                       max_abs_err=err, ms=time_ms(lambda: matmul_int4(x, w4, s)),
+                       device_ms=device_ms(lambda: matmul_int4(x, w4, s)),
+                       plain_ms=time_ms(lambda: matmul_int4_plain(x, w4, s), iters=5),
+                       library_ms=time_ms(lambda: torch.matmul(x, w_deq32.t())),
+                       library_device_ms=device_ms(lambda: torch.matmul(x, w_deq32.t())))
+            results.setdefault("fp32", []).append(rec)
+            tot = fp32_totals[tokens]
+            for key in tot:
+                tot[key] += n * (1 if key == "launches" else rec[key])
+            log(f"    fp32 tokens={tokens}: kernel {rec['ms']:.4f} ms (device "
+                f"{rec['device_ms']:.4f}), plain {rec['plain_ms']:.4f} ms, fp32 matmul of the "
+                f"dequantized weight {rec['library_ms']:.4f} ms (device "
+                f"{rec['library_device_ms']:.4f}); bound as three bf16 products {b3:.5f} ms "
+                f"({b3_by}), as fp32 FMAs {rec['bound_fma_ms']:.5f} ms, as 3xTF32 "
+                f"{rec['bound_3xtf32_ms']:.5f} ms; {n} launches at k=1")
+        if (out, din) == (dim, dim):
             xg = x.to(torch.bfloat16).requires_grad_(True)
             check_refuses_grad("matmul_int4", lambda: matmul_int4(xg, w4, s))
+    for tokens, tot in fp32_totals.items():
+        log(f"  fp32 over an fp32 separate's {tot['launches']:.0f} launches at {tokens} tokens: "
+            f"kernel device {tot['device_ms']:.2f} ms, fp32 matmul of the dequantized weight "
+            f"device {tot['library_device_ms']:.2f} ms; bounds: three bf16 products "
+            f"{tot['bound_3xbf16_ms']:.2f}, fp32 FMAs {tot['bound_fma_ms']:.2f}, 3xTF32 "
+            f"{tot['bound_3xtf32_ms']:.2f} ms")
     _, by = bound_ms(totals["flops"], totals["bytes"])
     results.update(name="matmul_int4", totals=totals, bound_by=by, max_abs_err=max(errs),
-                   per_shape=per_shape,
+                   per_shape=per_shape, fp32_err=max(fp32_errs),
+                   fp32_totals={f"{t} tokens": tot for t, tot in fp32_totals.items()},
                    tolerance="bf16 atol 2e-2 + rtol 2e-2; fp32 atol 1e-4 + rtol 1e-4")
 
 
@@ -1443,6 +1495,32 @@ def read_counts():
     return {fn.__name__: fn.launches for fn in kernel_wrappers()}
 
 
+class launches_by_dtype:
+    """Counts a kernel's launches by dtype while the block runs, from its
+    ctypes entry point (whose second-to-last argument is the dtype code, 0 =
+    float32, 1 = bfloat16): `with launches_by_dtype(module, entry) as n:`.
+    The launch counters stay the wrappers' own; this only tells fp32 launches
+    from bf16 ones."""
+
+    def __init__(self, module, entry):
+        self.lib, self.entry = module._load(), entry
+        self.counts = {"float32": 0, "bfloat16": 0}
+
+    def __enter__(self):
+        fn = self.fn = getattr(self.lib, self.entry)
+
+        def spy(*args):
+            self.counts["float32" if args[-2] == 0 else "bfloat16"] += 1
+            return fn(*args)
+
+        setattr(self.lib, self.entry, spy)
+        return self.counts
+
+    def __exit__(self, *exc):
+        setattr(self.lib, self.entry, self.fn)
+        return False
+
+
 def check_outputs(res, n_samples, what):
     import numpy as np
 
@@ -1852,7 +1930,7 @@ def quantized_probe(what, model, batch, noise, ref, expect, timed_runs=TIMED_RUN
     snr = float(10 * np.log10(np.sum(ref * ref) / max(np.sum((a - ref) ** 2), 1e-30)))
     log(f"  timed runs (ms): {[round(t, 1) for t in times]}; p50 {p50(times):.1f} ms; "
         f"realtime factor {MIXTURE_SECONDS * 1e3 / p50(times):.2f}x; peak memory "
-        f"{peak / 2**30:.2f} GiB; target vs exact bf16: correlation {corr:.4f}, "
+        f"{peak / 2**30:.2f} GiB; target vs the exact model's: correlation {corr:.4f}, "
         f"SNR {snr:.2f} dB")
     require(np.isfinite(corr) and corr >= 0.5,
             f"{what}: target correlation with the exact model {corr:.4f} < 0.5")
@@ -3881,7 +3959,8 @@ def main() -> int:
                             ("fused_residual_unit", k3), ("matmul_int4", k4)) if "fp32" in res},
                   "fused_residual_unit_shapes": k3.get("per_shape"),
                   "fused_residual_unit_totals": k3.get("totals"),
-                  "matmul_int4_shapes": k4.get("per_shape"), "power": smi}
+                  "matmul_int4_shapes": k4.get("per_shape"),
+                  "matmul_int4_fp32_totals": k4.get("fp32_totals"), "power": smi}
         os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
         with open(os.path.join(HERE, "build", "chip_smoke_kernels.json"), "w") as f:
             json.dump(record, f, indent=1)
@@ -3966,6 +4045,45 @@ def main() -> int:
         "int8", model, batch, noise, ref,
         {"matmul_int4": 0, "fused_glue_attention": n_layers * nfe,
          "fused_residual_unit": 36, "flash_attention": 0})
+    # the same model on phase 6's 45 s clip: quantized modes run attention in
+    # fp32, so this drives kernel 2's fp32 body
+    log(f"[int8 long] the int8 model on the {LONG_SECONDS:g} s clip (attention in fp32)")
+    from sam_audio_tpu_torch.ops import flash_attention as flash_module
+    with launches_by_dtype(flash_module, "sa_flash_attention") as by_dtype:
+        _, counts_long8, ms_long8, _, peak_long8 = drive(
+            "int8 long", model, clip_batch(proc, model.sample_rate, LONG_SECONDS), LONG_SECONDS,
+            {"flash_attention": n_layers * nfe, "fused_residual_unit": 36,
+             "fused_glue_attention": 0, "matmul_int4": 0}, 0, generator=gen)
+    require(by_dtype == {"float32": n_layers * nfe, "bfloat16": 0},
+            f"int8 long: kernel 2 launches by dtype {by_dtype}, expected all fp32")
+    log(f"  kernel 2 launches by dtype {by_dtype}; peak memory {peak_long8 / 2**30:.2f} GiB")
+    int8_long = {"first_ms": ms_long8, "launches": counts_long8, "peak_bytes": peak_long8,
+                 "flash_attention_by_dtype": dict(by_dtype)}
+    del model
+    torch.cuda.empty_cache()
+
+    # 11b. kernel 4's fp32 body at full width: main's config in fp32 (seed 0)
+    # after quantize(4), against the exact fp32 model with the same noise
+    import dataclasses
+
+    log("[int4 fp32] main's config in fp32 (seed 0): quantize(bits=4), separate(k=1), 10 s clip")
+    model = SAMAudio.init_random(dataclasses.replace(cfg, compute_dtype="float32"), seed=0,
+                                 device=DEVICE, tokenizer=tok)
+    ref32 = model.separate(batch, noise=noise).target[0].astype("float64")
+    model.quantize(4)
+    torch.cuda.empty_cache()
+    from sam_audio_tpu_torch.ops import int4_matmul as int4_module
+    n_int4 = sum(int4_launches_k1(cfg).values())
+    with launches_by_dtype(int4_module, "sa_matmul_int4") as by_dtype:
+        int4_fp32 = quantized_probe(
+            "int4 fp32", model, batch, noise, ref32,
+            {"matmul_int4": n_int4, "fused_glue_attention": n_layers * nfe,
+             "fused_residual_unit": 36, "flash_attention": 0}, timed_runs=1)
+    # the counted run and the timed one
+    require(by_dtype == {"float32": 2 * n_int4, "bfloat16": 0},
+            f"int4 fp32: kernel 4 launches by dtype {by_dtype}, expected all fp32")
+    log(f"  kernel 4 launches by dtype over the two runs {by_dtype}")
+    int4_fp32["matmul_int4_by_dtype"] = dict(by_dtype)
     del model
     torch.cuda.empty_cache()
 
@@ -4005,8 +4123,12 @@ def main() -> int:
             extra["forward_backward"] = res["fwd_bwd"]
         if "narrow" in res:    # kernel 3 at widths that are not multiples of 32
             extra["narrow_widths"] = res["narrow"]
-        if "fp32" in res:   # the fp32 body at its paths' shapes, with both bounds
+        if "fp32" in res:   # the fp32 body at its paths' shapes, with its bounds
             extra["fp32"] = res["fp32"]
+        if "fp32_totals" in res:   # kernel 4's fp32 body over an fp32 separate's launches
+            extra["fp32_totals"] = res["fp32_totals"]
+        if res["name"] in fp32_launches:   # on the driven path that runs the fp32 body
+            extra["fp32_launches"] = fp32_launches[res["name"]]
         extra["train_launches_per_step"] = train["launches_per_step"][res["name"]]
         extra["parallel_launches_per_rank"] = parallel_launches[res["name"]]
         return {**extra, "name": res["name"], "route": "cuda", "source": source,
@@ -4019,6 +4141,8 @@ def main() -> int:
                 "ms_scope": "one separate's launches; ms and library_ms include the host "
                             "wrapper, device_ms and library_device_ms are CUDA-graph replays"}
 
+    fp32_launches = {"flash_attention": {"int8_45s": int8_long["flash_attention_by_dtype"]},
+                     "matmul_int4": {"int4_fp32_10s_counted": int4_fp32["launches"]["matmul_int4"]}}
     # each kernel's launches per rank on its sharded path (kernel 2: the
     # unsharded 48 s reference that the sp4 ring is held against)
     paths = {"fused_glue_attention": "k1", "fused_residual_unit": "k1",
@@ -4051,7 +4175,8 @@ def main() -> int:
                "long_45s": {"ms": long_times[0], "first_ms": long_ms,
                             "peak_bytes": long_peak, "launches": long_counts},
                "rerank_k8_10s": rerank, "stream_60s": stream, "judge_k8_10s": judge,
-               "int4_10s": int4, "int8_10s": int8, "visual_10s": visual,
+               "int4_10s": int4, "int8_10s": int8, "int8_45s": int8_long,
+               "int4_fp32_10s": int4_fp32, "visual_10s": visual,
                "visual_stream_30s": visual_stream, "spans_10s": spans, "serve": serve,
                "eval": evaluation, "small_train": small_train, "examples": examples,
                "tiny": tiny, "host_runtime": host_runtime,

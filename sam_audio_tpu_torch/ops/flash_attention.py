@@ -21,9 +21,22 @@ registers, V read as it lies); a warpgroup starts tile j + 1's scores together
 with tile j's p . v and runs the softmax, in base 2 with the scale folded in,
 while they are in flight. 192 queries a block make the long path 96 blocks,
 all resident at once, each pulling K and V through L2 only once per 192
-queries. In fp32 the products are FMAs. A null mask pointer stands for "no
-mask": the wrapper launches nothing but the kernel; a tile's mask bytes are
-read two a lane and shared by ballot.
+queries. In fp32 both products run on the tensor cores in split TF32
+("3xTF32": each operand split into hi + lo in TF32, lo . hi + hi . lo +
+hi . hi summed in fp32) on mma.sync, fed by the same kind of TMA ring (two
+stages of 32-key fp32 K and V tiles, each split once for the block, V
+transposed); a block is nine warps of 16 query rows (144 rows: the long
+path's 128 blocks fill one wave), the scores and p stay in registers, p is
+not rounded, and each tile's p . v goes to a fresh accumulator added to the
+running output in fp32. Its bound under that arithmetic: three TF32
+products, 3 x 10.4 GFLOP = 63 us at 495 TFLOP/s at (1, 1125, 16, 128). It
+runs at ~3.6x that, under SDPA fp32 at B = 1 and 8 (PERF.md): a tile's
+products form long dependent chains, Q's fragments are split again every
+tile, and ten warps an SM cap a thread at 168 registers.
+The precision is the design's: neither body reads
+torch.backends.cuda.matmul.allow_tf32 or cudnn.allow_tf32. A null mask
+pointer stands for "no mask": the wrapper launches nothing but the kernel; a
+tile's mask bytes are read two a lane and shared by ballot.
 
 `flash_attention` takes the plain PyTorch version for CPU tensors and
 launches the kernel for CUDA tensors (raising if it cannot); it counts its

@@ -32,9 +32,26 @@ to run (no atomics). A launch of 86 tiles, (5504, 2048) at 250 tokens, stays
 unsplit: two splits would need a second wave. What holds it back (PERF.md): a
 chunk's copies and products take their times one after the other instead of
 overlapping, and at 250 tokens two thirds of a launch are fixed costs (two
-launches, the ring's fill, the workspace). fp32 inputs take an FMA path without splits. The TPU
-kernel's `tokens <= 256` VMEM gate and its padding of the tokens to 8 are not
-carried over: masked copies take any token count.
+launches, the ring's fill, the workspace).
+
+Design (fp32): the same tiles, ring and split plan on the bf16 tensor cores.
+The weights are integers in [-7, 7], exact in bf16, so only x is split: a
+small kernel of the same call writes x as three bf16 planes, x = hi + mid +
+lo (each rounded to nearest; 24 bits in all), into a (3, M, in) workspace,
+and a product of a plane with an int4 weight is exact in fp32. Each group's
+partial is W_g . lo^T + W_g . mid^T + W_g . hi^T into one fresh wgmma
+accumulator (the tensor cores' fp32 accumulation rounds toward zero, so it
+never runs across groups), then scaled and added in fp32 as in bf16. Its
+tiles, and so `split_plan`, are the bf16 body's (a stage of three planes
+leaves room for two to eight stages). Its bound under this arithmetic: three
+bf16 products, 3 x 2.1 GFLOP = 6.4 us at (2048, 2048) and 250 tokens (45.9 ms
+over the 4,640 such launches of an fp32 separate after quantize(4)). It runs
+at ~2.5x that, about a third of the fp32 matmul of the dequantized weight
+(PERF.md): a chunk's copies and products add instead of overlapping, and a
+call is three launches (split, products, reduce). The precision
+is the design's: neither body reads torch.backends.cuda.matmul.allow_tf32 or
+cudnn.allow_tf32. The TPU kernel's `tokens <= 256` VMEM gate and its padding
+of the tokens to 8 are not carried over: masked copies take any token count.
 
 `matmul_int4` takes the plain PyTorch version for CPU tensors and launches the
 kernel for CUDA tensors (raising ValueError for a shape it cannot take: the
@@ -56,29 +73,29 @@ from sam_audio_tpu_torch.ops.grad import refuse_grad
 
 _lib = None
 
-ROW_TILE = 64          # packed rows a block of the bf16 kernel owns
-RESIDENT_BLOCKS = 132  # one block of the bf16 kernel an SM, 132 SMs
+ROW_TILE = 64          # packed rows a block owns
+RESIDENT_BLOCKS = 132  # one block an SM, 132 SMs
 
 
 def token_tile(m: int) -> int:
-    """Tokens a block of the bf16 kernel owns: the least of 16, 64, 128 that
+    """Tokens a block owns (either body): the least of 16, 64, 128 that
     holds m, else 128."""
     return 16 if m <= 16 else 64 if m <= 64 else 128
 
 
 @functools.lru_cache(maxsize=None)
 def n_splits(m: int, half: int, n_groups: int) -> int:
-    """How many blocks of the bf16 kernel share the groups of one output tile:
-    the most that keep tiles x splits within one wave of resident blocks."""
+    """How many blocks share the groups of one output tile: the most that
+    keep tiles x splits within one wave of resident blocks."""
     tiles = -(-half // ROW_TILE) * -(-m // token_tile(m))
     return max(1, min(n_groups, RESIDENT_BLOCKS // tiles))
 
 
 def split_plan(m: int, half: int, n_groups: int):
-    """The bf16 kernel's split of the contraction axis for m tokens, `half`
-    packed rows and n_groups scale groups: [(first group, end group)] per
-    split. Split s of S takes groups [s*G // S, (s+1)*G // S), so every group
-    lies in exactly one split and no split is empty."""
+    """The kernel's split of the contraction axis for m tokens, `half`
+    packed rows and n_groups scale groups, in either body: [(first group,
+    end group)] per split. Split s of S takes groups [s*G // S, (s+1)*G //
+    S), so every group lies in exactly one split and no split is empty."""
     splits = n_splits(m, half, n_groups)
     return [(s * n_groups // splits, (s + 1) * n_groups // splits) for s in range(splits)]
 
@@ -113,7 +130,7 @@ def _load():
     if _lib is None:
         lib = _build.load("int4_matmul")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.sa_matmul_int4.argtypes = [p] * 5 + [i] * 6 + [p]
+        lib.sa_matmul_int4.argtypes = [p] * 6 + [i] * 6 + [p]
         lib.sa_matmul_int4.restype = i
         _lib = lib
     return _lib
@@ -148,13 +165,16 @@ def matmul_int4(x: torch.Tensor, w4: torch.Tensor, w4_scale: torch.Tensor) -> to
         if t.device != x.device:
             raise ValueError("matmul_int4: inputs on different devices")
     out = torch.empty((m, 2 * half), dtype=x.dtype, device=x.device)
-    # the fp32 path walks all of K in one block
-    splits = n_splits(m, half, n_groups) if x.dtype == torch.bfloat16 else 1
+    splits = n_splits(m, half, n_groups)
     ws = (torch.empty((splits, m, 2 * half), dtype=torch.float32, device=x.device)
           if splits > 1 else None)
+    # fp32: the kernel's bf16 planes hi, mid, lo of x
+    x3 = (torch.empty((3, m, k), dtype=torch.bfloat16, device=x.device)
+          if x.dtype == torch.float32 else None)
     P = _build.ptr
     err = _load().sa_matmul_int4(P(xc), P(wc), P(w4_scale), P(out),
-                                 P(ws) if ws is not None else None, m, k, half, n_groups,
+                                 P(ws) if ws is not None else None,
+                                 P(x3) if x3 is not None else None, m, k, half, n_groups,
                                  splits, code, _build.stream_of(xc))
     _build.check(err, "matmul_int4")
     matmul_int4.launches += 1

@@ -169,6 +169,28 @@ def test_cuda_flash_attention_lengths_and_batches(cuda, dtype, tol, b, s):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk", [(1, 1125, 1125), (8, 2000, 2000), (2, 700, 1300),
+                                     (3, 1500, 1030)])
+def test_cuda_flash_attention_fp32_runs_bit_equal_and_other_key_lengths(cuda, b, sq, sk):
+    """The fp32 body: two runs on one input give the same bits, and queries
+    and keys of different lengths (a padded row, a fully masked row and
+    holes where the batch has them) agree with the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(sq + sk)
+    q = torch.randn(b, sq, H, D, generator=g, device=cuda)
+    k, v = (torch.randn(b, sk, H, D, generator=g, device=cuda) for _ in range(2))
+    mask = torch.ones((b, sk), dtype=torch.bool, device=cuda)
+    mask[0, sk * 3 // 4:] = False
+    if b > 1:
+        mask[1, :] = False
+    if b > 2:
+        mask[2, ::3] = False
+    out = flash_attention(q, k, v, mask)
+    ref = flash_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    assert torch.equal(out, flash_attention(q, k, v, mask))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_no_mask_equals_all_true(cuda, dtype):
     q, k, v, _ = _qkv(cuda, 1125, dtype, 6)
@@ -307,33 +329,37 @@ DIT_SHAPES = [(2048, 2048), (5504, 2048), (2048, 5504), (2048, 768)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("tokens", [1, 14, 250, 2000])
 @pytest.mark.parametrize("out,din", DIT_SHAPES, ids=lambda v: str(v))
-def test_cuda_matmul_int4_dit_shapes(cuda, tokens, out, din):
+def test_cuda_matmul_int4_dit_shapes(cuda, tokens, out, din, dtype, tol):
     """Every split plan the serving path meets (1 to 16 splits, uneven ones
-    over 43 and 6 groups), and two runs giving the same bits."""
+    over 43 and 6 groups; fp32 tiles of 16 or 64 tokens), and two runs
+    giving the same bits."""
     q = _int4(cuda, out, din, tokens + out)
     g = torch.Generator(device=cuda).manual_seed(tokens)
-    x = torch.randn(tokens, din, generator=g, device=cuda).to(torch.bfloat16)
+    x = torch.randn(tokens, din, generator=g, device=cuda).to(dtype)
     y = matmul_int4(x, q["w4"], q["w4_scale"])
+    assert y.dtype == dtype
     ref = matmul_int4_plain(x, q["w4"], q["w4_scale"])
-    torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
     assert torch.equal(y, matmul_int4(x, q["w4"], q["w4_scale"]))
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
 @pytest.mark.parametrize("tokens,out,din,group", [(250, 256, 512, 64), (40, 200, 768, 128),
                                                   (9, 72, 96, 32), (300, 136, 2048, 16)],
                          ids=["group-64", "ragged-out", "group-32", "group-16"])
-def test_cuda_matmul_int4_groups_and_ragged_rows(cuda, tokens, out, din, group):
+def test_cuda_matmul_int4_groups_and_ragged_rows(cuda, tokens, out, din, group, dtype, tol):
     g = torch.Generator(device=cuda).manual_seed(out)
     q = quantize_linear_int4({"weight": 0.1 * torch.randn(out, din, generator=g, device=cuda)},
                              group_size=group)
     assert q["w4_scale"].shape == (out, din // group)
-    x = torch.randn(tokens, din, generator=g, device=cuda).to(torch.bfloat16)
+    x = torch.randn(tokens, din, generator=g, device=cuda).to(dtype)
     y = matmul_int4(x, q["w4"], q["w4_scale"])
     ref = matmul_int4_plain(x, q["w4"], q["w4_scale"])
-    torch.testing.assert_close(y.float(), ref.float(), rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(y.float(), ref.float(), rtol=tol, atol=tol)
     assert torch.equal(y, matmul_int4(x, q["w4"], q["w4_scale"]))
 
 

@@ -24,7 +24,11 @@ from sam_audio_tpu.ops.fused_conv import fused_residual_unit as jax_res_unit
 from sam_audio_tpu.ops.rope import precompute_rope as jax_rope
 from sam_audio_tpu_torch.checkpoint import params_from_numpy
 from sam_audio_tpu_torch.ops import _build
-from sam_audio_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from sam_audio_tpu_torch.ops.flash_attention import (
+    DEFAULT_MASK_VALUE,
+    flash_attention,
+    flash_attention_plain,
+)
 from sam_audio_tpu_torch.ops.conv import snake_f32
 from sam_audio_tpu_torch.ops.fused_attention import (
     _norm_rope,
@@ -425,3 +429,57 @@ def test_3xtf32_holds_the_fp32_contract_where_one_tf32_product_does_not():
     one = split_tf32(qn)[0] @ split_tf32(kt)[0]
     out1 = split_tf32(torch.softmax(one / D ** 0.5, -1))[0] @ split_tf32(vh)[0]
     assert float((out1.double() - out64).abs().max()) > 1e-4
+
+
+def _flash_tiles(q, k, v, mask, mm):
+    """Kernel 2's fp32 body as it computes, in plain torch: 64-key tiles over
+    the keys padded to a multiple of 128, q . k^T and p . v through `mm`, the
+    online softmax in base 2 with the mask constant added after the scaling
+    (unscaled), p unrounded, each tile's p . v added to the rescaled running
+    output. q: (b, h, sq, D); k, v: (b, h, sk, D); mask: (b, sk) bool."""
+    sk = k.shape[2]
+    pad = -(-sk // 128) * 128 - sk
+    kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in (k, v))
+    keep = torch.nn.functional.pad(mask, (0, pad))[:, None, None, :]
+    scale_log2 = D ** -0.5 * float(np.log2(np.e))
+    m = torch.full(q.shape[:3] + (1,), float("-inf"))
+    l = torch.zeros(q.shape[:3] + (1,))
+    o = torch.zeros(q.shape)
+    for k0 in range(0, kp.shape[2], 64):
+        x = mm(q, kp[:, :, k0:k0 + 64].transpose(-1, -2)) * scale_log2
+        x = torch.where(keep[..., k0:k0 + 64], x, x + DEFAULT_MASK_VALUE)
+        m_next = torch.maximum(m, x.amax(-1, keepdim=True))
+        alpha, p = torch.exp2(m - m_next), torch.exp2(x - m_next)
+        l, m = alpha * l + p.sum(-1, keepdim=True), m_next
+        o = o * alpha + mm(p, vp[:, :, k0:k0 + 64])
+    return o / torch.where(l == 0, torch.ones_like(l), l)
+
+
+@pytest.mark.parametrize("sk", [1125, 2000])
+def test_3xtf32_flash_attention_holds_the_fp32_contract_where_one_tf32_product_does_not(sk):
+    """Kernel 2's fp32 body emulated (`_flash_tiles` with `_mm_3xtf32` for
+    both products) over 1125 and 2000 keys, a padded row and a fully masked
+    row, held against softmax(q k^T / sqrt(D) + mask) v over the padded keys
+    in float64 within 1e-5; with one TF32 product for each (hi . hi) it
+    misses 1e-4. q and k have std 1.5 (logits of std 2.25, a peakier softmax
+    than unit inputs give, as trained attention has)."""
+    rng = np.random.RandomState(sk)
+    b, h, sq = 2, 2, 128
+    q, k = (torch.tensor(1.5 * rng.randn(b, h, n, D).astype(np.float32)) for n in (sq, sk))
+    v = torch.tensor(rng.randn(b, h, sk, D).astype(np.float32))
+    mask = torch.ones(b, sk, dtype=torch.bool)
+    mask[0, sk * 3 // 4:] = False   # padded row
+    mask[1, :] = False              # fully masked row: the mean of V over the padded keys
+    pad = -(-sk // 128) * 128 - sk
+    kp, vp = (torch.nn.functional.pad(x, (0, 0, 0, pad)).double() for x in (k, v))
+    keep = torch.nn.functional.pad(mask, (0, pad))[:, None, None, :]
+    logits = q.double() @ kp.transpose(-1, -2) * D ** -0.5
+    ref = torch.softmax(torch.where(keep, logits, logits + DEFAULT_MASK_VALUE), -1) @ vp
+    torch.testing.assert_close(ref[1], vp[1].mean(1, keepdim=True).expand_as(ref[1]))
+    three = _flash_tiles(q, k, v, mask, _mm_3xtf32)
+    assert float((three.double() - ref).abs().max()) < 1e-5
+
+    def one(a, b):
+        return split_tf32(a)[0] @ split_tf32(b)[0]
+
+    assert float((_flash_tiles(q, k, v, mask, one).double() - ref).abs().max()) > 1e-4

@@ -29,6 +29,7 @@ from sam_audio_tpu_torch.ops.int4_matmul import (
     matmul_int4,
     matmul_int4_plain,
     split_plan,
+    unpack_int4,
 )
 from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
 
@@ -104,9 +105,76 @@ def test_split_plan_covers_every_group_once(groups, tokens):
         assert all(end > first for first, end in plan)  # no empty split
         tiles = -(-half // ROW_TILE) * -(-tokens // token_tile(tokens))
         assert len(plan) == 1 or tiles * len(plan) <= RESIDENT_BLOCKS
-    # the serving shapes at 250 tokens fill most of one wave
+    # the serving shapes at 250 tokens fill most of one wave; (5504, 2048)
+    # is 86 tiles in both bodies (fp32 too takes 128-token tiles): one wave,
+    # unsplit
     if tokens == 250 and groups >= 6:
         assert len(split_plan(tokens, 1024, groups)) == 4
+    if tokens == 250:
+        assert len(split_plan(tokens, 2752, groups)) == 1
+
+
+def _split_bf16x3(x):
+    """x (fp32) as kernel 4's fp32 body splits it on the card: hi = rn(x) in
+    bf16 (rounded toward zero where rn would pass bf16's largest), mid =
+    rn(x - hi), lo = rn(x - hi - mid); an infinite or NaN x is hi alone."""
+    hi = x.to(torch.bfloat16)
+    toward_zero = (x.view(torch.int32) & -65536).view(torch.float32).to(torch.bfloat16)
+    hi = torch.where(torch.isinf(hi) & torch.isfinite(x), toward_zero, hi)
+    r1 = torch.where(torch.isfinite(x), x - hi.float(), torch.zeros_like(x))
+    mid = r1.to(torch.bfloat16)
+    return hi, mid, (r1 - mid.float()).to(torch.bfloat16)
+
+
+def test_bf16x3_split_recovers_x():
+    """hi + mid + lo is x exactly for normal x down to 2^-100 (the three
+    planes hold its 24 significant bits) and within 2^-134 below (bf16's
+    subnormal step): ±0 keep their sign, subnormals, and the largest floats
+    (hi stops at bf16's largest) stay finite."""
+    rng = np.random.RandomState(0)
+    tiny, big = np.finfo(np.float32).tiny, np.finfo(np.float32).max
+    x = np.concatenate([
+        rng.randn(4096) * 10.0 ** rng.randint(-30, 30, 4096),
+        [0.0, -0.0, tiny, -tiny, tiny / 3, -tiny / 7, 1e-45, 3e-39, big, -big, big * 0.99997,
+         1.0 + 2.0 ** -8, 1.0 + 2.0 ** -9 + 2.0 ** -23, 1.0 - 2.0 ** -24]]).astype(np.float32)
+    xt = torch.tensor(x)
+    hi, mid, lo = _split_bf16x3(xt)
+    assert all(bool(torch.isfinite(p).all()) for p in (hi, mid, lo))
+    err = (hi.double() + mid.double() + lo.double() - xt.double()).abs()
+    assert float(err[xt.abs() >= 2.0 ** -100].max()) == 0.0
+    assert float(err.max()) <= 2.0 ** -134
+    assert torch.equal(torch.signbit(hi[x == 0]), torch.signbit(xt[x == 0]))
+    assert float(hi[-3]) == 1.0 and float(mid[-3]) == 2.0 ** -8   # a tie rounds to even
+    inf = torch.tensor([np.inf, -np.inf, np.nan])
+    assert torch.equal(_split_bf16x3(inf)[1], torch.zeros(3, dtype=torch.bfloat16))
+
+
+def test_int4_three_bf16_planes_hold_the_fp32_contract_where_one_plane_does_not():
+    """Kernel 4's fp32 body emulated at the DiT's (2048, 2048) and 250
+    tokens, groups of 128: each group's partial lo . W + mid . W + hi . W
+    (products of a bf16 plane and an int4 weight are exact in fp32) is
+    scaled and summed in fp32, within 1e-5 of float64; with the hi plane
+    alone it misses 1e-4."""
+    rng = np.random.RandomState(1)
+    m, k, n = 250, 2048, 2048
+    x = torch.tensor(rng.randn(m, k).astype(np.float32))
+    q = TQ.quantize_linear_int4({"weight": torch.tensor(
+        (rng.randn(n, k) / k ** 0.5).astype(np.float32))})
+    w = torch.cat(unpack_int4(q["w4"])).float()
+    s = q["w4_scale"]
+    planes = [p.float() for p in _split_bf16x3(x)]
+    ref = torch.zeros(m, n, dtype=torch.float64)
+    three, one = torch.zeros(m, n), torch.zeros(m, n)
+    for g in range(s.shape[1]):
+        cols = slice(128 * g, 128 * (g + 1))
+        wt = w[:, cols].t()
+        ref += (x[:, cols].double() @ wt.double()) * s[:, g].double()
+        part = planes[2][:, cols] @ wt
+        part = part + planes[1][:, cols] @ wt
+        three += (part + planes[0][:, cols] @ wt) * s[:, g]
+        one += (planes[0][:, cols] @ wt) * s[:, g]
+    assert float((three.double() - ref).abs().max()) < 1e-5
+    assert float((one.double() - ref).abs().max()) > 1e-4
 
 
 @pytest.mark.parametrize("groups,tokens", [(6, 14), (16, 250), (43, 5)])
