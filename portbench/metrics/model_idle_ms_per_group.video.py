@@ -1,0 +1,5 @@
+"""`model_idle_ms_per_group` in the video cell, where it moves audio_s_per_s.video."""
+
+from portbench.harness.registry import metric_reader
+
+read = metric_reader("model_idle_ms_per_group")

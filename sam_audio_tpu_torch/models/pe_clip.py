@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from sam_audio_tpu_torch.config import PerceptionEncoderConfig
 from sam_audio_tpu_torch.ops import nn as N
 from sam_audio_tpu_torch.ops.attention import attend
-from sam_audio_tpu_torch.utils import unstack_layers
+from sam_audio_tpu_torch.utils import stage, unstack_layers
 
 
 def _keys_cubic(x: np.ndarray) -> np.ndarray:
@@ -202,8 +202,9 @@ class PerceptionEncoder:
         feats: List[torch.Tensor] = []
         bs = self.cfg.batch_size
         for video in videos:
-            v = preprocess_frames(torch.as_tensor(np.asarray(video), device=self.device),
-                                  self.cfg)
+            with stage("upload"):
+                v = torch.as_tensor(np.asarray(video), device=self.device)
+            v = preprocess_frames(v, self.cfg)
             step = bs if bs > 0 else v.shape[0]
             feats.append(torch.cat([
                 encode_images(self.params, v[i: i + step], self.cfg, self.compute_dtype)

@@ -41,6 +41,7 @@ from sam_audio_tpu_torch.ops import nn as N
 from sam_audio_tpu_torch.ops.ode import odeint
 from sam_audio_tpu_torch.parallel import comm
 from sam_audio_tpu_torch.parallel.mesh import dp_block
+from sam_audio_tpu_torch.utils import stage
 
 logger = logging.getLogger(__name__)
 
@@ -131,12 +132,14 @@ def separate_latents(params, audios, text_ids, text_mask, anchor_ids,
     over its `sp_axis` axis (parallel/sp.py) on whole DiT leaves; the
     velocity is gathered whole for the ODE on every rank."""
     compute_dtype = DTYPES[cfg.compute_dtype]
-    lat = dacvae.encode(params["audio_codec"], audios, cfg.audio_codec,
-                        compute_dtype=compute_dtype)          # (B, C, T)
+    with stage("codec_encode"):
+        lat = dacvae.encode(params["audio_codec"], audios, cfg.audio_codec,
+                            compute_dtype=compute_dtype)      # (B, C, T)
     lat = lat.transpose(1, 2).float()
     audio_features = torch.cat([lat, lat], dim=2)            # (B, T, 2C)
-    text_features = t5_encode(params["text_encoder"], text_ids, text_mask,
-                              cfg.text_encoder, compute_dtype=compute_dtype)
+    with stage("t5"):
+        text_features = t5_encode(params["text_encoder"], text_ids, text_mask,
+                                  cfg.text_encoder, compute_dtype=compute_dtype)
     b, t, _ = audio_features.shape
     # zeros when there is no visual prompt (reference model.py:186-191)
     if video_features is None:
@@ -182,7 +185,8 @@ def separate_latents(params, audios, text_ids, text_mask, anchor_ids,
         )
         return v.to(y.dtype)
 
-    latents = odeint(vector_field, noise, method=ode_method, step_size=ode_step_size)
+    with stage("ode"):
+        latents = odeint(vector_field, noise, method=ode_method, step_size=ode_step_size)
     return comm.gather(latents, 0, dp_group)
 
 
@@ -446,7 +450,8 @@ class SAMAudio:
         predict_spans, preview_nfe, visual_stride, max_direct_seconds. After
         `shard()` every rank calls it with the same batch and noise (or a
         generator in the same state) and returns the same result."""
-        with comm.use_tp(None if self.mesh is None else self.mesh.group("tp")):
+        with comm.use_tp(None if self.mesh is None else self.mesh.group("tp")), \
+                stage("separate"):
             return self._separate(batch, noise, **kwargs)
 
     def _separate(self, batch, noise=None, ode_opt: Optional[Dict[str, Any]] = None,
@@ -482,10 +487,11 @@ class SAMAudio:
                            "but explicit noise= forces the direct path",
                            t_frames, limit)
         dev = self.device
-        audios = torch.as_tensor(np.asarray(batch.audios), dtype=torch.float32,
-                                 device=dev)
+        with stage("upload"):
+            audios = torch.as_tensor(np.asarray(batch.audios), dtype=torch.float32,
+                                     device=dev)
+            text_ids, text_mask = self._tokenize(batch.descriptions)
         b = audios.shape[0]
-        text_ids, text_mask = self._tokenize(batch.descriptions)
         if predict_spans and self.span_predictor is None and not self.allow_random_towers:
             raise ValueError(
                 "predict_spans=True but no span predictor is attached. Convert a "
@@ -496,8 +502,9 @@ class SAMAudio:
             self._predict_spans_into_batch(batch, audios)
         video_features = None
         if batch.masked_video is not None:
-            video_features = self._encode_videos(batch.masked_video, t_frames,
-                                                 stride=int(visual_stride))
+            with stage("pe_encode"):
+                video_features = self._encode_videos(batch.masked_video, t_frames,
+                                                     stride=int(visual_stride))
         latent_ch = 2 * cfg.audio_codec.codebook_dim
         if noise is None:
             noise = torch.randn((b * k, t_frames, latent_ch), generator=generator,
@@ -516,13 +523,19 @@ class SAMAudio:
             return torch.as_tensor(np.asarray(x), dtype=torch.long, device=dev)
 
         params, par = self._parallel_args()
-        core_args = (params, audios, text_ids, text_mask, as_long(batch.anchor_ids),
-                     as_long(batch.anchor_alignment),
-                     torch.as_tensor(np.asarray(batch.audio_pad_mask), dtype=torch.bool,
-                                     device=dev))
+        with stage("upload"):
+            core_args = (params, audios, text_ids, text_mask, as_long(batch.anchor_ids),
+                         as_long(batch.anchor_alignment),
+                         torch.as_tensor(np.asarray(batch.audio_pad_mask), dtype=torch.bool,
+                                         device=dev))
+
+        def decoded(decode, channel, rows):
+            with stage(("decode_target", "decode_residual")[channel]):
+                return decode(self.params, rows, cfg=cfg, channel=channel)
 
         def trimmed(wavs):
-            wavs = wavs.cpu().numpy()
+            with stage("to_host"):
+                wavs = wavs.cpu().numpy()
             return [wavs[i, :sizes[i]] for i in range(b)]
 
         rerank = k > 1 and (self.text_ranker is not None or (
@@ -532,13 +545,12 @@ class SAMAudio:
             preview = separate_latents(*core_args, noise, cfg=cfg, candidates=k,
                                        ode_method=method, ode_step_size=2.0 / preview_nfe,
                                        video_features=video_features, **par)
-            idxs = self._choose(batch, decode_channel_chunked(
-                self.params, preview, cfg=cfg, channel=0), sizes, k)[0]
+            idxs = self._choose(batch, decoded(decode_channel_chunked, 0, preview), sizes, k)[0]
             chosen = separate_latents(
                 *core_args, gather_candidates(noise, idxs, candidates=k), cfg=cfg,
                 candidates=1, ode_method=method, ode_step_size=float(step),
                 video_features=video_features, **par)
-            target = trimmed(decode_channel(self.params, chosen, cfg=cfg, channel=0))
+            target = trimmed(decoded(decode_channel, 0, chosen))
         else:
             latents = separate_latents(*core_args, noise, cfg=cfg, candidates=k,
                                        ode_method=method, ode_step_size=float(step),
@@ -546,13 +558,13 @@ class SAMAudio:
             if rerank:
                 # all k targets are decoded for the ranker; the residual only
                 # for the winner (the JAX package's lazy decode)
-                idxs, target = self._choose(batch, decode_channel_chunked(
-                    self.params, latents, cfg=cfg, channel=0), sizes, k)
+                idxs, target = self._choose(
+                    batch, decoded(decode_channel_chunked, 0, latents), sizes, k)
                 chosen = gather_candidates(latents, idxs, candidates=k)
             else:  # candidate 0 of every item
                 chosen = gather_candidates(latents, [0] * b, candidates=k)
-                target = trimmed(decode_channel(self.params, chosen, cfg=cfg, channel=0))
-        residual = trimmed(decode_channel(self.params, chosen, cfg=cfg, channel=1))
+                target = trimmed(decoded(decode_channel, 0, chosen))
+        residual = trimmed(decoded(decode_channel, 1, chosen))
         return SeparationResult(target=target, residual=residual, noise=noise)
 
     def _separate_long(self, batch, k: int, generator, preview_nfe, predict_spans: bool,
@@ -597,15 +609,18 @@ class SAMAudio:
         """tgt_dev: the (B*k, Tw) decoded targets on the device. Returns the
         winners' indices and their trimmed target waveforms."""
         b = len(sizes)
-        idxs = self._rerank_on_device(batch, tgt_dev, sizes, k)
-        if idxs is not None:
-            # only the b winners leave the device
-            sel = gather_candidates(tgt_dev, idxs, candidates=k).cpu().numpy()
-            return idxs, [sel[i, :sizes[i]] for i in range(b)]
-        tgt_all = tgt_dev.cpu().numpy()
-        cands = [tgt_all[i * k:(i + 1) * k, :sizes[i]] for i in range(b)]
-        idxs = self._rerank(batch, cands, sizes, k)
-        return idxs, [cands[i][idxs[i]] for i in range(b)]
+        with stage("rank"):
+            idxs = self._rerank_on_device(batch, tgt_dev, sizes, k)
+            if idxs is not None:
+                # only the b winners leave the device
+                with stage("to_host"):
+                    sel = gather_candidates(tgt_dev, idxs, candidates=k).cpu().numpy()
+                return idxs, [sel[i, :sizes[i]] for i in range(b)]
+            with stage("to_host"):
+                tgt_all = tgt_dev.cpu().numpy()
+            cands = [tgt_all[i * k:(i + 1) * k, :sizes[i]] for i in range(b)]
+            idxs = self._rerank(batch, cands, sizes, k)
+            return idxs, [cands[i][idxs[i]] for i in range(b)]
 
     def _rerank_on_device(self, batch, tgt_dev, sizes, k: int):
         """Scores the candidates without a host round trip when the ranker

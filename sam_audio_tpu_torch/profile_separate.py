@@ -7,20 +7,18 @@ GPU (default SAMAudioConfig, random weights, bf16, k=1).
 
 `--bits` quantizes the model first (SAMAudio.quantize); `--candidates k`
 profiles separate(reranking_candidates=k) with a CLAP ranker of random
-weights scoring on the card (the stage times stay those of k=1). `--video`
-prompts with 25 masked frames a second of 360 x 640 through a PE-Core tower
-of the default PerceptionEncoderConfig (random, bf16; the model's video gate
-opened to 0.5): the stages gain `pe_encode_ms`, and a `pe_profile` line
+weights scoring on the card (the stages gain `rank`). `--video` prompts
+with 25 masked frames a second of 360 x 640 through a PE-Core tower of the
+default PerceptionEncoderConfig (random, bf16; the model's video gate
+opened to 0.5): the stages gain `pe_encode`, and a `pe_profile` line
 profiles the tower's encode alone.
 
-Prints, each as one JSON line:
-  * `stages`: host-clock ms of each stage of separate() (codec encode, T5,
-    the 32-evaluation ODE, the two codec decodes), each ended by a
-    torch.cuda.synchronize();
-  * `profile`: one whole separate() under torch.profiler: its wall ms, the
-    summed device time of its kernels, the device's idle share, and the top
-    kernels by device time, grouped by the port's own kernels, matrix
-    products, convolutions and the rest.
+Prints, each as one JSON line, from one separate() under torch.profiler:
+  * `stages`: each of the program's spans (utils.stage, `sam_audio.<stage>`)
+    with its calls, host ms and device ms (`span_stages`);
+  * `profile`: its wall ms, the device's busy ms (the union of its
+    operations' intervals) and idle share, and the top kernels by device
+    time, grouped by the port's own kernels, products, convolutions, the rest.
 The card's name and power limit from nvidia-smi come first.
 """
 
@@ -31,6 +29,7 @@ import json
 import subprocess
 import sys
 import time
+from bisect import bisect_left
 
 
 def _ms(fn):
@@ -56,32 +55,71 @@ def _group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
+def _union_ms(intervals) -> float:
+    total = end = 0
+    for s, e in sorted(intervals):
+        total += max(0, e - max(s, end))
+        end = max(end, e)
+    return total / 1e6
+
+
+def span_stages(events) -> dict:
+    """Each `sam_audio.*` span of a profile's kineto events: calls, host ms,
+    and device ms: the union of its device intervals, from the first to the
+    last device operation launched inside it (where its linked host op
+    starts, else after the operation before it on its stream)."""
+    op_at, device, spans, stream_t, ops = {}, [], [], {}, []
+    for e in events:
+        iv = (e.start_ns(), e.start_ns() + e.duration_ns())
+        if str(e.device_type()).endswith("CUDA"):
+            if not e.is_user_annotation():
+                device.append((e.device_resource_id(), *iv, e.linked_correlation_id()))
+        elif e.is_user_annotation() or "::" in e.name():    # ops; runtime calls' ids differ
+            op_at[e.correlation_id()] = iv[0]
+            if e.name().startswith("sam_audio."):
+                spans.append((e.name()[len("sam_audio."):], *iv))
+    for stream, s, e, linked in sorted(device):
+        t = stream_t[stream] = op_at.get(linked, stream_t.get(stream))
+        if t is not None:
+            ops.append((t, s, e))
+    ops.sort()
+    at = [o[0] for o in ops]
+    stages = {}
+    for name, s0, s1 in spans:
+        host, dev = stages.setdefault(name, ([], []))
+        host.append((s0, s1))
+        inside = ops[bisect_left(at, s0):bisect_left(at, s1)]
+        if inside:
+            dev.append((min(o[1] for o in inside), max(o[2] for o in inside)))
+    return {name: {"calls": len(host), "host_ms": _union_ms(host), "device_ms": _union_ms(dev)}
+            for name, (host, dev) in stages.items()}
+
+
 def device_profile(fn):
-    """fn() once under torch.profiler: wall ms, device busy ms, idle share,
-    launches, device ms by group and the top kernels."""
+    """fn() once under torch.profiler: wall ms, device busy ms (the union of
+    the device's operation intervals), idle share, launches, device ms by
+    group, the top kernels and the program's spans (`stages`)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         _, wall = _ms(fn)
-    # user annotations (e.g. "Optimizer.step#AdamW.step") span kernels that
-    # are counted on their own
-    kernels = [e for e in prof.key_averages()
-               if getattr(e, "device_type", None) is not None
-               and str(e.device_type).endswith("CUDA")
-               and not getattr(e, "is_user_annotation", False)
-               and getattr(e, "self_device_time_total", 0) > 0]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    groups = {}
-    for e in kernels:
-        g = groups.setdefault(_group(e.key), {"ms": 0.0, "launches": 0})
-        g["ms"] += e.self_device_time_total / 1e3
-        g["launches"] += e.count
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-    return prof, {"wall_ms": wall, "device_busy_ms": busy_us / 1e3,
-                  "device_idle_share": max(0.0, 1 - busy_us / 1e3 / wall),
-                  "kernel_launches": sum(e.count for e in kernels), "groups": groups,
-                  "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
-                           "launches": e.count} for e in top]}
+    events = prof.profiler.kineto_results.events()
+    # a user annotation's copy on the device timeline spans operations
+    # that are counted on their own
+    ops = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+           if str(e.device_type()).endswith("CUDA") and not e.is_user_annotation()]
+    groups, by_name = {}, {}
+    for name, s, e in ops:
+        for table, key in ((groups, _group(name)), (by_name, name[:90])):
+            g = table.setdefault(key, {"ms": 0.0, "launches": 0})
+            g["ms"] += (e - s) / 1e6
+            g["launches"] += 1
+    busy_ms = _union_ms((s, e) for _, s, e in ops)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1]["ms"])[:15]
+    return prof, {"wall_ms": wall, "device_busy_ms": busy_ms,
+                  "device_idle_share": max(0.0, 1 - busy_ms / wall),
+                  "kernel_launches": len(ops), "groups": groups,
+                  "top": [{"name": k, **v} for k, v in top], "stages": span_stages(events)}
 
 
 def main() -> int:
@@ -100,11 +138,6 @@ def main() -> int:
         return 2
 
     from sam_audio_tpu_torch import SAMAudio, SAMAudioConfig, SAMAudioProcessor
-    from sam_audio_tpu_torch.models import dacvae
-    from sam_audio_tpu_torch.models.sam_audio import (
-        DTYPES, decode_channel, forward)
-    from sam_audio_tpu_torch.models.t5 import t5_encode
-    from sam_audio_tpu_torch.ops.ode import odeint
     from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -140,48 +173,13 @@ def main() -> int:
     k = args.candidates
     model.separate(batch, generator=gen, reranking_candidates=k)  # warm-up (plans)
 
-    # stages, as separate_latents runs them
-    p, dt = model.params, DTYPES[cfg.compute_dtype]
-    dev = torch.device("cuda")
-    stages = {}
-    with torch.inference_mode():
-        audios = torch.as_tensor(batch.audios, device=dev)
-        lat, stages["encode_ms"] = _ms(lambda: dacvae.encode(
-            p["audio_codec"], audios, cfg.audio_codec, compute_dtype=dt))
-        ids, mask = model._tokenize(batch.descriptions)
-        text, stages["t5_ms"] = _ms(lambda: t5_encode(
-            p["text_encoder"], ids, mask, cfg.text_encoder, compute_dtype=dt))
-        lat = lat.transpose(1, 2).float()
-        feats = torch.cat([lat, lat], 2)
-        t = feats.shape[1]
-        if args.video:
-            video, stages["pe_encode_ms"] = _ms(lambda: model._encode_videos(
-                batch.masked_video, t))
-        else:
-            video = torch.zeros((1, cfg.vision_encoder.dim, t), device=dev)
-        aids = torch.as_tensor(batch.anchor_ids, dtype=torch.long, device=dev)
-        align = torch.as_tensor(batch.anchor_alignment, dtype=torch.long, device=dev)
-        pad = torch.as_tensor(batch.audio_pad_mask, device=dev)
-        noise = torch.randn((1, t, feats.shape[-1]), generator=gen, device=dev)
-
-        def field(tt, y):
-            return forward(p, cfg, y, feats, text, tt.expand(1), video, mask, aids,
-                           align, pad, compute_dtype=dt).to(y.dtype)
-
-        latents, stages["ode_32nfe_ms"] = _ms(lambda: odeint(
-            field, noise, method="midpoint", step_size=2 / 32))
-        _, stages["decode_target_ms"] = _ms(lambda: decode_channel(
-            p, latents, cfg=cfg, channel=0))
-        _, stages["decode_residual_ms"] = _ms(lambda: decode_channel(
-            p, latents, cfg=cfg, channel=1))
-    stages["sum_ms"] = sum(stages.values())
-    print(json.dumps({"stages": stages}), flush=True)
-
     prof, rec = device_profile(
         lambda: model.separate(batch, generator=gen, reranking_candidates=k))
+    print(json.dumps({"stages": rec.pop("stages")}), flush=True)
     print(json.dumps({"profile": {"bits": args.bits, "candidates": k, "video": args.video,
                                   **rec}}), flush=True)
     if args.video:
+        t = batch.anchor_alignment.shape[-1]
         with torch.inference_mode():
             _, pe = device_profile(lambda: model._encode_videos(batch.masked_video, t))
         print(json.dumps({"pe_profile": pe}), flush=True)

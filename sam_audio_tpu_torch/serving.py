@@ -12,6 +12,11 @@ list of requests and:
   4. runs `model.separate` per group, one group after another, and returns
      the responses in request order.
 
+`self.timer` (utils.StageTimer) is installed on the calling thread for the
+call: the stages `run` (the call), `host_decode`, `plan`, `preprocess` and
+`separate`, and the model's own stages inside `separate`, are timed there,
+and under torch.profiler they are `sam_audio.*` annotations.
+
 The JAX package solves group g+1 on a worker thread while the caller copies
 out group g, which overlaps work there because XLA dispatches
 asynchronously. Here `model.separate` runs to its end and returns host
@@ -33,7 +38,7 @@ import numpy as np
 
 from sam_audio_tpu_torch.processor import Anchor, SAMAudioProcessor
 from sam_audio_tpu_torch.runtime import plan_batches
-from sam_audio_tpu_torch.utils import StageTimer
+from sam_audio_tpu_torch.utils import StageTimer, stage
 
 
 @dataclass
@@ -152,15 +157,21 @@ class SeparationPipeline:
     def run(self, requests: Sequence[SeparationRequest]) -> List[SeparationResponse]:
         if not requests:
             return []
+        with self.timer.install(), stage("run"):
+            return self._run(requests)
+
+    def _run(self, requests: Sequence[SeparationRequest]) -> List[SeparationResponse]:
         sr = self.model.sample_rate
-        with self.timer.stage("host_decode"):
+        with stage("host_decode"):
             with ThreadPoolExecutor(self.num_io_threads) as pool:
                 wavs = list(pool.map(lambda r: decode_request_audio(r, sr), requests))
-        batches, buckets = plan_batches([w.shape[-1] for w in wavs], hop=self.model.hop_length,
-                                        bucket_steps=self.bucket_steps,
-                                        max_batch=self.max_batch)
-        work = split_by_modality(batches, buckets,
-                                 lambda i: requests[i].masked_video is not None)
+        with stage("plan"):
+            batches, buckets = plan_batches([w.shape[-1] for w in wavs],
+                                            hop=self.model.hop_length,
+                                            bucket_steps=self.bucket_steps,
+                                            max_batch=self.max_batch)
+            work = split_by_modality(batches, buckets,
+                                     lambda i: requests[i].masked_video is not None)
         responses: List[Optional[SeparationResponse]] = [None] * len(requests)
 
         grid = batch_grid(self.max_batch)
@@ -168,9 +179,9 @@ class SeparationPipeline:
             idx = list(group)
             if self.pad_batch_sizes:
                 idx += [group[-1]] * (next(g for g in grid if g >= len(group)) - len(group))
-            with self.timer.stage("preprocess"):
+            with stage("preprocess"):
                 batch = group_batch(self.processor, requests, wavs, idx, bucket)
-            with self.timer.stage("separate"):
+            with stage("separate"):
                 result = self.model.separate(
                     batch, reranking_candidates=self.reranking_candidates,
                     predict_spans=self.predict_spans, preview_nfe=self.preview_nfe,

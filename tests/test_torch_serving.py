@@ -353,6 +353,19 @@ def test_stage_timer():
     assert "a" in timer.report()
     timer.reset()
     assert timer.summary() == {}
+    # nested stages: each line has the total, the share of the outermost
+    # stages' sum (a child is not counted twice) and the self time
+    timer.totals.update(run=2.0, separate=1.5, ode=1.0)
+    timer.self_times.update(run=0.5, separate=0.5, ode=1.0)
+    timer.counts.update(run=1, separate=1, ode=1)
+    timer.outer_total = 2.0
+    lines = dict(line.split(":", 1) for line in timer.report().splitlines())
+    assert {k.strip() for k in lines} == {"run", "separate", "ode"}
+    assert "2000.0 ms (100.0%), self    500.0 ms" in lines["            run"]
+    assert "1500.0 ms ( 75.0%), self    500.0 ms" in lines["       separate"]
+    assert "1000.0 ms ( 50.0%), self   1000.0 ms" in lines["            ode"]
+    timer.reset()
+    assert timer.outer_total == 0.0 and not timer.self_times
     off = StageTimer(enabled=False)
     with off.stage("b"):
         pass
