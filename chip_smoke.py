@@ -1498,26 +1498,44 @@ def read_counts():
 class launches_by_dtype:
     """Counts a kernel's launches by dtype while the block runs, from its
     ctypes entry point (whose second-to-last argument is the dtype code, 0 =
-    float32, 1 = bfloat16): `with launches_by_dtype(module, entry) as n:`.
-    The launch counters stay the wrappers' own; this only tells fp32 launches
-    from bf16 ones."""
+    float32, 1 = bfloat16): `with launches_by_dtype(model, module, entry) as
+    n:`, `n` filled when the block ends. The launch counters stay the
+    wrappers' own; this only tells fp32 launches from bf16 ones. Its two
+    counts are launch counters (`_build.COUNTERS`) while the block runs, so
+    that the replays of a CUDA graph captured inside it count too; entering
+    clears `model`'s graphs, so that every graph the block replays is
+    captured inside it."""
 
-    def __init__(self, module, entry):
+    def __init__(self, model, module, entry):
+        import types
+
+        self.model = model
         self.lib, self.entry = module._load(), entry
-        self.counts = {"float32": 0, "bfloat16": 0}
+        self.by = {"float32": types.SimpleNamespace(launches=0),
+                   "bfloat16": types.SimpleNamespace(launches=0)}
+        self.counts = {}
 
     def __enter__(self):
+        from sam_audio_tpu_torch.ops import _build
+
         fn = self.fn = getattr(self.lib, self.entry)
 
         def spy(*args):
-            self.counts["float32" if args[-2] == 0 else "bfloat16"] += 1
+            self.by["float32" if args[-2] == 0 else "bfloat16"].launches += 1
             return fn(*args)
 
         setattr(self.lib, self.entry, spy)
+        self.model.dit_graphs.clear()
+        _build.COUNTERS.extend(self.by.values())
         return self.counts
 
     def __exit__(self, *exc):
+        from sam_audio_tpu_torch.ops import _build
+
         setattr(self.lib, self.entry, self.fn)
+        for c in self.by.values():
+            _build.COUNTERS.remove(c)
+        self.counts.update({k: c.launches for k, c in self.by.items()})
         return False
 
 
@@ -4049,7 +4067,7 @@ def main() -> int:
     # fp32, so this drives kernel 2's fp32 body
     log(f"[int8 long] the int8 model on the {LONG_SECONDS:g} s clip (attention in fp32)")
     from sam_audio_tpu_torch.ops import flash_attention as flash_module
-    with launches_by_dtype(flash_module, "sa_flash_attention") as by_dtype:
+    with launches_by_dtype(model, flash_module, "sa_flash_attention") as by_dtype:
         _, counts_long8, ms_long8, _, peak_long8 = drive(
             "int8 long", model, clip_batch(proc, model.sample_rate, LONG_SECONDS), LONG_SECONDS,
             {"flash_attention": n_layers * nfe, "fused_residual_unit": 36,
@@ -4074,7 +4092,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     from sam_audio_tpu_torch.ops import int4_matmul as int4_module
     n_int4 = sum(int4_launches_k1(cfg).values())
-    with launches_by_dtype(int4_module, "sa_matmul_int4") as by_dtype:
+    with launches_by_dtype(model, int4_module, "sa_matmul_int4") as by_dtype:
         int4_fp32 = quantized_probe(
             "int4 fp32", model, batch, noise, ref32,
             {"matmul_int4": n_int4, "fused_glue_attention": n_layers * nfe,

@@ -30,6 +30,10 @@ column-parallel, wo/w2 row-parallel; each rank attends over its H/tp heads
 and t_block's output is gathered whole for every block's modulation.
 `dit_prepare` / `dit_block_apply(attend_fn=)` / `dit_finalize` split the
 trunk as JAX does, for the sequence-parallel path (parallel/sp.py).
+
+RoPE tables come from `dit_rope_tables` (built once a length, on the
+device) unless the caller passes them: a CUDA graph of the evaluation
+(models/dit_graph.py) reads them from its own buffers.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from sam_audio_tpu_torch.ops import conv as C
 from sam_audio_tpu_torch.ops import nn as N
 from sam_audio_tpu_torch.ops.attention import attend, sdpa
 from sam_audio_tpu_torch.ops.fused_attention import fused_glue_attention
-from sam_audio_tpu_torch.ops.rope import apply_rope_half, precompute_rope
+from sam_audio_tpu_torch.ops.rope import apply_rope_half, rope_tables as cached_rope
 from sam_audio_tpu_torch.utils import unstack_layers
 
 FUSED_MAX_SEQLEN = 512
@@ -171,12 +175,22 @@ def _site_generator(seed, device):
     return None if seed is None else torch.Generator(device=device).manual_seed(seed)
 
 
+def dit_rope_tables(cfg: TransformerConfig, frames: int, device):
+    """The DiT's (cos, sin) RoPE tables for `frames` post-stem frames (the
+    stem keeps the length), or None without RoPE."""
+    if not cfg.use_rope:
+        return None
+    return cached_rope(cfg.head_dim, frames, max(10000, 2 * cfg.max_positions),
+                       torch.device(device))
+
+
 def dit_prepare(params, x, time, *, cfg: TransformerConfig, memory=None,
-                compute_dtype=None, dropout_generator=None):
+                compute_dtype=None, dropout_generator=None, rope_tables=None):
     """Stem and embedders (everything before the layer loop), shared with
     the sequence-parallel trunk (parallel/sp.py). Returns (h, t, t0, y,
     rope_tables, layer_seeds, out_seed): the seeds of the layers' and the
-    output's dropout sites (None without `dropout_generator`)."""
+    output's dropout sites (None without `dropout_generator`). Given
+    `rope_tables` are used as they are, else `dit_rope_tables` gives them."""
     seeds = [None] * (4 + cfg.n_layers)
     if dropout_generator is not None:
         seeds = torch.randint(0, 2**62, (4 + cfg.n_layers,), generator=dropout_generator,
@@ -209,11 +223,8 @@ def dit_prepare(params, x, time, *, cfg: TransformerConfig, memory=None,
                          cfg.context_non_linearity, compute_dtype,
                          cfg.context_embedder_dropout, _site_generator(y_seed, h.device))
 
-    rope_tables = None
-    if cfg.use_rope:
-        rope_tables = precompute_rope(cfg.head_dim, h.shape[1],
-                                      max(10000, 2 * cfg.max_positions),
-                                      device=h.device)
+    if rope_tables is None:
+        rope_tables = dit_rope_tables(cfg, h.shape[1], h.device)
     return h, t, t0, y, rope_tables, layer_seeds, out_seed
 
 
@@ -231,7 +242,7 @@ def dit_finalize(params, h, t, *, cfg: TransformerConfig, compute_dtype=None,
 
 def dit_apply(params, x, time, *, cfg: TransformerConfig, padding_mask=None,
               memory=None, memory_padding_mask=None, compute_dtype=None,
-              remat=None, dropout_generator=None):
+              remat=None, dropout_generator=None, rope_tables=None):
     """x: (B, T, in_channels or dim); time: (B,); memory: (B, L, context_dim).
     Returns (B, T, out_channels). Reference: transformer.py:473-524.
 
@@ -239,12 +250,13 @@ def dit_apply(params, x, time, *, cfg: TransformerConfig, padding_mask=None,
     activation memory of about one layer) or "dots" (the layer's linear
     outputs kept, the rest recomputed). `dropout_generator`: a
     torch.Generator (the trainer's is on the CPU, so no device sync) that
-    seeds the dropout sites; None is inference."""
+    seeds the dropout sites; None is inference. `rope_tables`: (cos, sin)
+    for the post-stem length, or None for `dit_rope_tables`'."""
     if remat not in (None, "full", "dots"):
         raise ValueError(f"unknown remat policy {remat!r}")
     h, t, t0, y, rope_tables, layer_seeds, out_seed = dit_prepare(
         params, x, time, cfg=cfg, memory=memory, compute_dtype=compute_dtype,
-        dropout_generator=dropout_generator)
+        dropout_generator=dropout_generator, rope_tables=rope_tables)
 
     def block(h, layer, seed):
         return dit_block_apply(

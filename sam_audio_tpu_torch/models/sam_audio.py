@@ -26,6 +26,7 @@ GPU and no explicit CPU request they raise.
 
 from __future__ import annotations
 
+import functools
 import logging
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional
@@ -35,7 +36,8 @@ import torch
 
 from sam_audio_tpu_torch.config import SAMAudioConfig
 from sam_audio_tpu_torch.models import dacvae
-from sam_audio_tpu_torch.models.dit import dit_apply
+from sam_audio_tpu_torch.models.dit import dit_apply, dit_rope_tables
+from sam_audio_tpu_torch.models.dit_graph import DiTGraphs
 from sam_audio_tpu_torch.models.t5 import t5_encode
 from sam_audio_tpu_torch.ops import nn as N
 from sam_audio_tpu_torch.ops.ode import odeint
@@ -84,12 +86,15 @@ def align_inputs(params, cfg: SAMAudioConfig, noisy_audio, audio_features,
 def forward(params, cfg: SAMAudioConfig, noisy_audio, audio_features,
             text_features, time, masked_video_features=None, text_mask=None,
             anchor_ids=None, anchor_alignment=None, audio_pad_mask=None,
-            compute_dtype=None, remat=None, dropout_generator=None, dit_fn=None):
+            compute_dtype=None, remat=None, dropout_generator=None, dit_fn=None,
+            rope_tables=None):
     """One ODE function evaluation. noisy_audio/audio_features: (B, T,
     2*latent); text_features: (B, L, text_dim); time: (B,). Returns the
     velocity (B, T, out_channels). `remat` and `dropout_generator` are for
     training (models/dit.py dit_apply); inference passes neither. `dit_fn`
-    replaces the DiT (the sequence-parallel trunk; inference only)."""
+    replaces the DiT (the sequence-parallel trunk; inference only).
+    `rope_tables`: the DiT's (cos, sin) for T frames (dit_rope_tables), or
+    None to look them up."""
     aligned = align_inputs(params, cfg, noisy_audio, audio_features,
                            masked_video_features, anchor_ids, anchor_alignment,
                            compute_dtype)
@@ -110,7 +115,7 @@ def forward(params, cfg: SAMAudioConfig, noisy_audio, audio_features,
         params["transformer"], aligned, time, cfg=cfg.transformer,
         padding_mask=audio_pad_mask, memory=memory,
         memory_padding_mask=text_mask, compute_dtype=compute_dtype,
-        remat=remat, dropout_generator=dropout_generator,
+        remat=remat, dropout_generator=dropout_generator, rope_tables=rope_tables,
     )
 
 
@@ -119,7 +124,7 @@ def separate_latents(params, audios, text_ids, text_mask, anchor_ids,
                      cfg: SAMAudioConfig, candidates: int = 1,
                      ode_method: str = "midpoint", ode_step_size: float = 2 / 32,
                      video_features: Optional[torch.Tensor] = None, mesh=None,
-                     sp_mesh=None, sp_axis: str = "sp"):
+                     sp_mesh=None, sp_axis: str = "sp", graphs: Optional[DiTGraphs] = None):
     """Encode -> condition -> ODE. audios (B, 1, Tw); noise (B*k, T, 2C);
     video_features (B, vision_dim, T) or None for no visual prompt.
     Returns the generated latents (B*k, T, 2C) = [target || residual].
@@ -130,7 +135,12 @@ def separate_latents(params, audios, text_ids, text_mask, anchor_ids,
     the ODE; otherwise every rank solves all rows. The codec and T5 run
     whole on every rank. `sp_mesh`: the DiT trunk runs sequence-parallel
     over its `sp_axis` axis (parallel/sp.py) on whole DiT leaves; the
-    velocity is gathered whole for the ODE on every rank."""
+    velocity is gathered whole for the ODE on every rank.
+
+    `graphs` (the model's `DiTGraphs`): where it engages (the state on a
+    CUDA device, autograd off, no mesh, no sp_mesh, no tp group), each
+    evaluation of the ODE replays a CUDA graph of the DiT evaluation
+    (models/dit_graph.py); otherwise, and without it, they run eagerly."""
     compute_dtype = DTYPES[cfg.compute_dtype]
     with stage("codec_encode"):
         lat = dacvae.encode(params["audio_codec"], audios, cfg.audio_codec,
@@ -175,18 +185,30 @@ def separate_latents(params, audios, text_ids, text_mask, anchor_ids,
             return gather_sequence(dit_apply_sp(*args, mesh=sp_mesh, axis_name=sp_axis,
                                                 **kwargs), sp_mesh, sp_axis)
 
-    def vector_field(tt, y):
+    # what an evaluation reads besides the state, the time and the params
+    rope = None if dit_fn is not None else dit_rope_tables(cfg.transformer, t, noise.device)
+    inputs = dict(audio_features=audio_features, text_features=text_features,
+                  text_mask=text_mask, video_features=video_features, anchor_ids=anchor_ids,
+                  anchor_alignment=anchor_alignment, audio_pad_mask=audio_pad_mask,
+                  rope_cos=None if rope is None else rope[0],
+                  rope_sin=None if rope is None else rope[1])
+
+    def vector_field(tt, y, video_features, rope_cos, rope_sin, **cond):
         v = forward(
-            params, cfg, noisy_audio=y, audio_features=audio_features,
-            text_features=text_features, time=tt.expand(bk),
-            masked_video_features=video_features, text_mask=text_mask,
-            anchor_ids=anchor_ids, anchor_alignment=anchor_alignment,
-            audio_pad_mask=audio_pad_mask, compute_dtype=compute_dtype, dit_fn=dit_fn,
+            params, cfg, noisy_audio=y, time=tt.expand(bk),
+            masked_video_features=video_features, compute_dtype=compute_dtype,
+            dit_fn=dit_fn, rope_tables=None if rope_cos is None else (rope_cos, rope_sin),
+            **cond,
         )
         return v.to(y.dtype)
 
+    sharded = mesh is not None or sp_mesh is not None or comm.tp_group() is not None
+    if graphs is not None and graphs.engages(noise, sharded):
+        func = graphs.field(vector_field, noise, inputs)
+    else:
+        func = functools.partial(vector_field, **inputs)
     with stage("ode"):
-        latents = odeint(vector_field, noise, method=ode_method, step_size=ode_step_size)
+        latents = odeint(func, noise, method=ode_method, step_size=ode_step_size)
     return comm.gather(latents, 0, dp_group)
 
 
@@ -226,6 +248,11 @@ class SAMAudio:
       * `SAMAudio.from_pretrained(path, device="cuda")` — load the
         config.json + params.npz snapshot the JAX package writes.
       * `SAMAudio.init_random(cfg, seed, device="cuda")` — random weights.
+
+    `dit_graphs` holds the CUDA graphs of the DiT evaluation that
+    `separate` replays on the card (models/dit_graph.py); setting `params`
+    (quantize(), shard(), a load) clears it. The graphs see leaves changed
+    in place; a leaf replaced inside the tree needs `params` set again.
     """
 
     def __init__(self, cfg: SAMAudioConfig, params, device="cuda", tokenizer=None,
@@ -238,6 +265,7 @@ class SAMAudio:
         compute_dtype = DTYPES[cfg.compute_dtype]
         if compute_dtype != torch.float32:
             params = cast_matmul_weights(params, compute_dtype)
+        self.dit_graphs = DiTGraphs()
         self.params = params
         self._tokenizer = tokenizer
         self.allow_random_towers = allow_random_towers
@@ -295,6 +323,16 @@ class SAMAudio:
             json.dump(dataclasses.asdict(self.cfg), f, indent=2)
         save_params(os.path.join(out_dir, "params.npz"), self.params)
         return out_dir
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, params):
+        # the graphs read the parameters they were captured with
+        self._params = params
+        self.dit_graphs.clear()
 
     @property
     def sample_rate(self) -> int:
@@ -523,6 +561,7 @@ class SAMAudio:
             return torch.as_tensor(np.asarray(x), dtype=torch.long, device=dev)
 
         params, par = self._parallel_args()
+        par["graphs"] = self.dit_graphs
         with stage("upload"):
             core_args = (params, audios, text_ids, text_mask, as_long(batch.anchor_ids),
                          as_long(batch.anchor_alignment),

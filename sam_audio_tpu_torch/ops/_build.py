@@ -25,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC.parent.parent / "build" / "kernels"
@@ -38,6 +38,10 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # seconds the last build took and nvcc's register/shared-memory report,
 # for chip_smoke.py to print
 build_info: Dict[str, object] = {}
+# every object whose `launches` counts a kernel's device executions (each
+# wrapper adds itself); a CUDA graph of the DiT (models/dit_graph.py) adds
+# the launches it recorded at capture to each on every replay
+COUNTERS: List[object] = []
 
 
 def find_nvcc() -> str:

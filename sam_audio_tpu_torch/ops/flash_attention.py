@@ -180,3 +180,4 @@ def _launch(q, k, v, key_padding_mask, scale):
 
 
 flash_attention.launches = 0
+_build.COUNTERS.append(flash_attention)

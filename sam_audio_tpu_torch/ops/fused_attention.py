@@ -222,3 +222,4 @@ def _launch(q, k, v, q_norm_w, k_norm_w, cos, sin, key_padding_mask, eps):
 
 
 fused_glue_attention.launches = 0
+_build.COUNTERS.append(fused_glue_attention)

@@ -6,11 +6,14 @@ output channels are stored deinterleaved (rotary pair (2i, 2i+1) moved to
 (`apply_rope_half`). A PE-AV tower with rotary buffers, and the PE-Core
 vision tower with `use_rope2d` (axial 2-D tables, `precompute_rope_2d`),
 rotate interleaved pairs (`apply_rope`). The tables are built in float64 numpy and stored as
-float32, exactly as the JAX package does.
+float32, exactly as the JAX package does. `rope_tables` keeps the DiT's
+tables on their device, built once a shape: a host build and copy on every
+evaluation cannot be captured in a CUDA graph (models/dit_graph.py).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -29,6 +32,16 @@ def precompute_rope(head_dim: int, max_seqlen: int, theta: float,
         torch.as_tensor(np.cos(angles).astype(np.float32), device=device),
         torch.as_tensor(np.sin(angles).astype(np.float32), device=device),
     )
+
+
+@functools.lru_cache(maxsize=32)
+def rope_tables(head_dim: int, max_seqlen: int, theta: float,
+                device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`precompute_rope`'s tables, built once per (head_dim, max_seqlen,
+    theta, device) and kept (read only). Built outside inference mode, so
+    that a training step may save them for its backward pass."""
+    with torch.inference_mode(False):
+        return precompute_rope(head_dim, max_seqlen, theta, device=device)
 
 
 def precompute_rope_2d(head_dim: int, grid: int, theta: float = 10000.0,

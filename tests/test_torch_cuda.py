@@ -507,17 +507,13 @@ def test_cuda_small_visual_separate_like_the_cpu(cuda):
         np.testing.assert_allclose(x, y, rtol=0, atol=2e-3)
 
 
-def _small_span_model(dev):
-    """A small fp32 model with a narrow native span predictor on `dev`, and
-    its copy on the CPU (the same weights)."""
-    from sam_audio_tpu_torch import SAMAudio
+def _small_cfg(compute_dtype="float32"):
+    """A small model whose DiT heads are 128 wide (kernel 1), 2 layers,
+    8 kHz codec of hop 8."""
     from sam_audio_tpu_torch.config import (
         DACVAEConfig, SAMAudioConfig, T5EncoderConfig, TransformerConfig)
-    from sam_audio_tpu_torch.models.span_predictor import SpanPredictor, SpanPredictorConfig
-    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
-    from sam_audio_tpu_torch.utils import tree_map
 
-    cfg = SAMAudioConfig(
+    return SAMAudioConfig(
         in_channels=96,
         audio_codec=DACVAEConfig(encoder_dim=32, encoder_rates=(2, 4), latent_dim=64,
                                  decoder_dim=128, decoder_rates=(4, 2), codebook_dim=16,
@@ -527,7 +523,18 @@ def _small_span_model(dev):
         transformer=TransformerConfig(dim=256, n_heads=2, n_layers=2, dropout=0.0,
                                       context_dim=256, max_positions=2048,
                                       frequency_embedding_dim=64, out_channels=32),
-        span_predictor=None, compute_dtype="float32")
+        span_predictor=None, compute_dtype=compute_dtype)
+
+
+def _small_span_model(dev):
+    """A small fp32 model with a narrow native span predictor on `dev`, and
+    its copy on the CPU (the same weights)."""
+    from sam_audio_tpu_torch import SAMAudio
+    from sam_audio_tpu_torch.models.span_predictor import SpanPredictor, SpanPredictorConfig
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+    from sam_audio_tpu_torch.utils import tree_map
+
+    cfg = _small_cfg()
     tok = ByteFallbackTokenizer(512)
     gpu = SAMAudio.init_random(cfg, seed=0, device=dev, tokenizer=tok)
     sp_cfg = SpanPredictorConfig(audio_dim=16, text_dim=64, hidden=64, n_layers=2, n_heads=4,
@@ -642,6 +649,222 @@ def test_cuda_eval_run_like_the_cpu(cuda, monkeypatch, tmp_path):
         assert card.keys() == host.keys() and len(host) == n_keys
         for k, v in host.items():
             assert abs(card[k] - v) <= 2e-3 + 2e-3 * abs(v), (k, card[k], v)
+
+
+def _graph_model(dev, compute_dtype="float32"):
+    """The small model on `dev`, a two-row batch with anchors (200 frames:
+    kernel 1) and its noise."""
+    import numpy as np
+
+    from sam_audio_tpu_torch import SAMAudio, SAMAudioProcessor
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+
+    model = SAMAudio.init_random(_small_cfg(compute_dtype), seed=0, device=dev,
+                                 tokenizer=ByteFallbackTokenizer(512))
+    model.params["embed_anchors"]["gate"].fill_(0.5)   # 0 at init: the anchors would be inert
+    rng = np.random.RandomState(0)
+    wavs = [(0.3 * np.sin(np.arange(1600) * 0.05) + 0.05 * rng.randn(1600)).astype(np.float32),
+            (0.2 * rng.randn(1200)).astype(np.float32)]
+    batch = SAMAudioProcessor(8, 8000)(descriptions=["a tone", "noise"], audios=wavs,
+                                       anchors=[[("+", 0.02, 0.1)], [("-", 0.0, 0.05)]])
+    return model, batch, rng.randn(2, 200, 32).astype(np.float32)
+
+
+def _rel(a, b) -> float:
+    a, b = torch.as_tensor(a).double(), torch.as_tensor(b).double()
+    return float((a - b).norm() / b.norm())
+
+
+def _captured_field(model, batch, noise, monkeypatch):
+    """(evaluate, y, inputs) as separate() hands them to the graph cache."""
+    from sam_audio_tpu_torch.models.dit_graph import DiTGraphs
+
+    seen = {}
+    real = DiTGraphs.field
+
+    def spy(self, evaluate, y, inputs):
+        seen.update(evaluate=evaluate, y=y, inputs=inputs)
+        return real(self, evaluate, y, inputs)
+
+    with monkeypatch.context() as m:
+        m.setattr(DiTGraphs, "field", spy)
+        model.separate(batch, noise=noise)
+    return seen["evaluate"], seen["y"], seen["inputs"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cuda_dit_graph_replays_the_eager_evaluation(cuda, monkeypatch, compute_dtype):
+    """One velocity-field evaluation as separate() hands it to the graph
+    cache: the first call (the eager warm-up, then the capture) and replays
+    at two (t, y) agree with the eager evaluation on the same inputs (the
+    same kernels: bit-identical expected, at most 1e-6 relative), and a
+    replay counts kernel 1's launches (2 layers) as the eager one does."""
+    from sam_audio_tpu_torch.models.dit_graph import DiTGraphs
+
+    model, batch, noise = _graph_model(cuda, compute_dtype)
+    evaluate, y, inputs = _captured_field(model, batch, noise, monkeypatch)
+    assert {k for k, x in inputs.items() if x is not None} >= {
+        "audio_features", "text_features", "text_mask", "video_features", "anchor_ids",
+        "anchor_alignment", "audio_pad_mask", "rope_cos", "rope_sin"}
+    graphs = DiTGraphs()
+    with torch.inference_mode():
+        func = graphs.field(evaluate, y, inputs)
+        t = torch.tensor(0.375, device=cuda)
+        first = func(t, y)
+        for tt, yy in ((t, y), (torch.tensor(0.8125, device=cuda), 0.5 * y + 0.1)):
+            n = fused_glue_attention.launches
+            got = func(tt, yy)
+            assert fused_glue_attention.launches - n == 2
+            want = evaluate(tt, yy, **inputs)
+            print(f"{compute_dtype} replay at t={float(tt)}: bit-identical "
+                  f"{torch.equal(got, want)}, relative difference {_rel(got, want):.3e}")
+            assert _rel(got, want) <= 1e-6
+        assert _rel(first, evaluate(t, y, **inputs)) <= 1e-6
+    assert graphs.captures == 1 and graphs.replays == 2 and len(graphs) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("samples,counter", [(1600, fused_glue_attention),
+                                             (8192, flash_attention)])
+def test_cuda_dit_graph_replay_kernels_on_the_profiler_trace(cuda, monkeypatch, samples, counter):
+    """A replay of a graph captured before the profiler starts shows its
+    attention kernels on the device trace: kernel 1 at 200 frames, kernel 2
+    at 1,024. One replay executes as many of them there as its launch
+    counter adds (one a layer), and a replay's device trace holds what the
+    eager evaluation's does."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from sam_audio_tpu_torch import SAMAudioProcessor
+    from sam_audio_tpu_torch.models.dit_graph import DiTGraphs
+
+    model, _, _ = _graph_model(cuda)
+    rng = np.random.RandomState(1)
+    batch = SAMAudioProcessor(8, 8000)(descriptions=["noise"],
+                                       audios=[(0.2 * rng.randn(samples)).astype(np.float32)])
+    noise = rng.randn(1, samples // 8, 32).astype(np.float32)
+    evaluate, y, inputs = _captured_field(model, batch, noise, monkeypatch)
+    name = counter.__name__
+    t = torch.tensor(0.5, device=cuda)
+
+    def traced(fn):
+        n = counter.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        return counter.launches - n, sum(name in k for k in kernels)
+
+    graphs = DiTGraphs()
+    with torch.inference_mode():
+        func = graphs.field(evaluate, y, inputs)
+        func(t, y)                       # the warm-up and the capture
+        counted, on_trace = traced(lambda: func(t, y))
+        eager = traced(lambda: evaluate(t, y, **inputs))
+    print(f"{name}: one replay counted {counted}, on the trace {on_trace}; eager {eager}")
+    assert graphs.replays == 1 and counted == on_trace == 2
+    assert eager == (2, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_separate_with_graphs_equals_the_eager_ode(cuda, monkeypatch):
+    """A separate through the graph cache equals the eager ODE's (at most
+    1e-6 relative); a second call of the shape, and an rk4 solve, capture
+    nothing; kernel 1 counts 2 layers x 32 evaluations a separate either way;
+    (2 x 16 for rk4 at step 0.25); quantize() clears the cache and the
+    next separate captures again."""
+    from sam_audio_tpu_torch.models.dit_graph import DiTGraphs
+
+    model, batch, noise = _graph_model(cuda)
+    graphs = model.dit_graphs
+    runs = []
+    for ode_opt, evals in ((None, 32), (None, 32), ({"method": "rk4", "step_size": 0.25}, 16)):
+        n = fused_glue_attention.launches
+        runs.append(model.separate(batch, noise=noise, ode_opt=ode_opt))
+        assert fused_glue_attention.launches - n == 2 * evals
+        assert graphs.captures == 1 and len(graphs) == 1
+    assert graphs.replays == 31 + 32 + 16
+    with monkeypatch.context() as m:
+        m.setattr(DiTGraphs, "engages", staticmethod(lambda y, sharded: False))
+        n = fused_glue_attention.launches
+        eager = model.separate(batch, noise=noise)
+        assert fused_glue_attention.launches - n == 2 * 32 and graphs.replays == 79
+    for res in runs[:2]:
+        for i in range(2):
+            assert _rel(res.target[i], eager.target[i]) <= 1e-6
+            assert _rel(res.residual[i], eager.residual[i]) <= 1e-6
+    model.quantize(8)
+    assert len(graphs) == 0
+    n = fused_glue_attention.launches
+    model.separate(batch, noise=noise)
+    assert fused_glue_attention.launches - n == 2 * 32 and graphs.captures == 2
+
+
+@pytest.mark.cuda
+def test_cuda_dit_graphs_are_bounded(cuda, monkeypatch):
+    """The cache holds at most `MAX_GRAPHS` graphs, least recently used out:
+    three lengths through a cache of two capture three times, and the first
+    length, evicted, captures again."""
+    from sam_audio_tpu_torch import SAMAudioProcessor
+    from sam_audio_tpu_torch.models import dit_graph
+
+    monkeypatch.setattr(dit_graph, "MAX_GRAPHS", 2)
+    model, _, _ = _graph_model(cuda)
+    graphs = model.dit_graphs
+    proc = SAMAudioProcessor(8, 8000)
+    for n, samples in enumerate((800, 1200, 1600, 800), start=1):
+        batch = proc(descriptions=["a tone"], audios=[0.1 * torch.ones(samples).numpy()])
+        model.separate(batch, generator=torch.Generator(device=cuda).manual_seed(n))
+        assert graphs.captures == n and len(graphs) == min(n, 2)
+
+
+@pytest.mark.cuda
+def test_cuda_dit_graphs_serve_threads(cuda, monkeypatch):
+    """Eight threads solve through one graph cache at once, each with its
+    own conditioning and state (a short switch interval interleaves them;
+    they race for the capture too): the buffers are filled per evaluation
+    under the cache's lock, so every velocity is the eager evaluation's of
+    that thread's inputs, and one capture serves them all."""
+    import sys
+    import threading
+
+    from sam_audio_tpu_torch.models.dit_graph import DiTGraphs
+
+    model, batch, noise = _graph_model(cuda)
+    evaluate, y, inputs = _captured_field(model, batch, noise, monkeypatch)
+    scales = (1.0, 0.5, -1.0, 2.0)
+    own = [(dict(inputs, audio_features=inputs["audio_features"] * s), y * s) for s in scales]
+    ts = [torch.tensor(v, device=cuda) for v in (0.0, 0.25, 0.5, 0.75)]
+    with torch.inference_mode():
+        want = [[evaluate(t, yy, **inp) for t in ts] for inp, yy in own]
+    graphs = DiTGraphs()
+    results, errors = {}, []
+
+    def work(i):
+        try:
+            inp, yy = own[i % 4]
+            func = graphs.field(evaluate, yy, inp)
+            results[i] = [func(t, yy) for t in ts]
+        except Exception as e:   # reported by the assertion below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors and not any(th.is_alive() for th in threads) and len(results) == 8
+    for i, outs in results.items():
+        for got, ref in zip(outs, want[i % 4]):
+            assert _rel(got, ref) <= 1e-6
+    assert graphs.captures == 1 and graphs.replays == 8 * 4 - 1
 
 
 @pytest.mark.cuda

@@ -2,6 +2,8 @@
 ode) on the same numpy inputs, fp32 on the CPU. Identical math is held at
 1e-5."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -94,6 +96,38 @@ def test_rope_tables_and_rotation():
     np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
     x = _rand(2, 33, 3, 16)
     _close(TR.apply_rope_half(torch.tensor(x), ct, st), JR.apply_rope_half(x, cj, sj))
+
+
+def test_rope_table_cache_holds_precompute_ropes_tables():
+    """The DiT's tables, built once a length and kept on their device, are
+    precompute_rope's exact float32 tables, also when first asked for
+    inside inference mode (a training step may save them)."""
+    from sam_audio_tpu_torch.config import TransformerConfig
+    from sam_audio_tpu_torch.models.dit import dit_rope_tables
+
+    cfg = TransformerConfig(dim=64, n_heads=4, n_layers=1, max_positions=7000)
+    with torch.inference_mode():
+        cos, sin = dit_rope_tables(cfg, 45, torch.device("cpu"))
+    assert not cos.is_inference() and dit_rope_tables(cfg, 45, "cpu")[0] is cos
+    ct, st = TR.precompute_rope(cfg.head_dim, 45, 14000)
+    assert torch.equal(cos, ct) and torch.equal(sin, st) and cos.dtype == torch.float32
+    assert dit_rope_tables(dataclasses.replace(cfg, use_rope=False), 45, "cpu") is None
+
+
+def test_dit_graphs_engage_only_on_an_unsharded_card_solve():
+    """CUDA graphs of the DiT serve a solve on a CUDA device with autograd
+    off and no sharding; the CPU, a recorded gradient and the sharded paths
+    run eagerly (a stand-in object plays the card's state here)."""
+    from types import SimpleNamespace
+
+    from sam_audio_tpu_torch.models.dit_graph import DiTGraphs
+
+    card = SimpleNamespace(is_cuda=True)
+    with torch.no_grad():
+        assert DiTGraphs.engages(card, sharded=False)
+        assert not DiTGraphs.engages(card, sharded=True)
+        assert not DiTGraphs.engages(torch.zeros(2, 3), sharded=False)
+    assert not DiTGraphs.engages(card, sharded=False)   # autograd on
 
 
 def test_sdpa_masks_and_fully_masked_row_is_mean_of_v():
