@@ -2,12 +2,13 @@
 of what the window produced against the plain reference, the result line.
 
 Set-up: the program built from the configuration file (weights drawn on
-the device from the seed, the vision tower where the file has one, then
-the file's `build` steps, each a method of the model and its arguments,
-such as ["quantize", 4]); the pool of requests made from the seed (WAV
-files in a temporary directory under TMPDIR); and the traffic's `loop`,
-found by name in portbench/harness/loops/<loop>.py, which builds the
-program's front end and warms up the cell's own shapes. The window: the
+the device from the seed, the vision tower where the file has one, the CLAP
+text ranker where it names one, then the file's `build` steps, each a
+method of the model and its arguments, such as ["quantize", 4]); the pool
+of requests made from the seed (WAV files in a temporary directory under
+TMPDIR); and the traffic's `loop`, found by name in
+portbench/harness/loops/<loop>.py, which builds the program's front end
+and warms up the cell's own shapes. The window: the
 loop drives the front end inside `Run.window()` until `Run.over()`, and
 hands each group it gets back to `Run.record`. The check: once the window
 has closed, its peak memory read and the program freed, a sample of the
@@ -15,7 +16,9 @@ rows it finished (drawn from the seed) is recomputed by the plain
 reference in float32 from the same inputs, the same weights and the same
 noise (replayed from the device generator's state that the loop saved
 before the call that drew it), and each compared number is held to the
-cell's limit.
+cell's limit. With k candidates an item the reference solves, decodes and
+scores all k of a sampled row, and the program's answer is compared with
+the candidate nearest to it (`pick`), whose score must be near the best.
 """
 
 from __future__ import annotations
@@ -55,8 +58,9 @@ class Row:
     target: np.ndarray
     residual: np.ndarray
     noise_state: object  # the device generator's state before the group's call
-    rows: int            # the group's rows, as the program drew their noise
+    rows: int            # the group's rows (items)
     samples: int         # the group's padded samples
+    candidates: int = 1  # noises an item, drawn item-major: rows * candidates
 
 
 class Reservoir:
@@ -117,8 +121,10 @@ class Device:
 
 def build_model(cfg: dict, seed: int, dev: Device):
     """SAMAudio with the configuration's weights drawn from the seed, its
-    PE-Core tower where the file has `vision_tower`, then the file's `build`
-    steps in order: ["quantize", 4] calls model.quantize(4)."""
+    PE-Core tower where the file has `vision_tower`, the CLAP ranker (its
+    weights from the seed, the `clap` block's widths, the byte tokenizer)
+    where `text_ranker` names one, then the file's `build` steps in order:
+    ["quantize", 4] calls model.quantize(4)."""
     import torch
 
     from sam_audio_tpu_torch import SAMAudio, SAMAudioConfig
@@ -133,9 +139,33 @@ def build_model(cfg: dict, seed: int, dev: Device):
         model.vision_encoder = PerceptionEncoder(
             pcfg.vision_encoder, weights.pe_weights(cfg, seed, dev.dev), device=dev.dev,
             compute_dtype=getattr(torch, cfg["compute_dtype"]))
+    if cfg.get("text_ranker"):
+        model.text_ranker = clap_ranker(cfg, seed, dev)
     for name, *args in cfg.get("build", []):
         getattr(model, name)(*args)
     return model
+
+
+def clap_config(cfg: dict):
+    """The program's ClapConfig of the configuration's `clap` block."""
+    from sam_audio_tpu_torch.models.clap import ClapConfig
+
+    return ClapConfig(**{k: tuple(v) if isinstance(v, list) else v
+                         for k, v in cfg["clap"].items()})
+
+
+def clap_ranker(cfg: dict, seed: int, dev: Device):
+    from sam_audio_tpu_torch.config import parse_ranker_config
+    from sam_audio_tpu_torch.models.clap import ClapModel
+    from sam_audio_tpu_torch.ranking.clap import ClapRanker
+    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
+
+    if cfg["text_ranker"]["kind"] != "clap":
+        raise ValueError(f"no ranker of kind {cfg['text_ranker']['kind']!r} in the benchmark")
+    c = clap_config(cfg)
+    model = ClapModel(c, weights.clap_weights(cfg, seed, dev.dev),
+                      tokenizer=ByteFallbackTokenizer(c.text_vocab), allow_fallback_tokenizer=True)
+    return ClapRanker(parse_ranker_config(cfg["text_ranker"]), model=model)
 
 
 def program_requests(pool: List[traffic.Request], sample_rate: int):
@@ -156,11 +186,11 @@ def program_requests(pool: List[traffic.Request], sample_rate: int):
     return out
 
 
-def text_width(descriptions, pad_to: int) -> int:
+def text_width(descriptions, pad_to: int, max_length: int = 512) -> int:
     """The padded prompt width of a group (the byte tokenizer's lengths)."""
     from portbench.reference.sam_audio import byte_tokens
 
-    longest = max(len(byte_tokens(d)) for d in descriptions)
+    longest = max(len(byte_tokens(d, max_length)) for d in descriptions)
     return -(-longest // pad_to) * pad_to
 
 
@@ -239,10 +269,15 @@ class Run:
             raise RuntimeError(f"group {len(self.groups)} was not one group: {sizes}")
         rows, samples = sizes.pop()
         g = len(self.groups)
+        k = int(self.traffic.get("candidates", 1))
+        clap = self.cell.config.get("clap") if self.cell.config.get("text_ranker") else None
+        descriptions = [r.description for r in reqs]
         self.groups.append(flops.GroupShape(
             rows=rows, samples=samples, frames=samples // self.hop,
-            text=text_width([r.description for r in reqs], int(self.traffic["text_pad_to"])),
-            video_frames=samples // self.hop if self.traffic.get("video") else 0))
+            text=text_width(descriptions, int(self.traffic["text_pad_to"])),
+            video_frames=samples // self.hop if self.traffic.get("video") else 0,
+            candidates=k,
+            rank_text=text_width(descriptions, 1, clap["max_text_len"]) if clap and k > 1 else 0))
         self.durations.append(seconds)
         self.attempted += len(reqs)
         for slot, (req, r) in enumerate(zip(reqs, results)):
@@ -251,7 +286,7 @@ class Run:
                 continue
             self.audio_s += req.wav.shape[0] / self.sample_rate
             self.reservoir.offer(Row(g, slot, req, r.target, r.residual, noise_state,
-                                     rows, samples))
+                                     rows, samples, k))
 
 
 def reference_check(cell: registry.Cell, seed: int, dev: Device, rows: List[Row],
@@ -259,7 +294,13 @@ def reference_check(cell: registry.Cell, seed: int, dev: Device, rows: List[Row]
     """The sampled rows recomputed by the plain reference in float32 (TF32
     off): the widest relative L2 gap of a target and of a residual, and the
     rows whose length or finiteness is wrong. With control "fp8" the
-    reference computed with fp8 operands takes the program's place."""
+    reference computed with fp8 operands takes the program's place.
+
+    A row of k > 1 candidates: the reference module's `separate_candidates`
+    solves, decodes and scores the item's k noises (`[slot * k:(slot + 1) *
+    k]` of the group's item-major draw); `pick` is its candidate nearest
+    (relative L2) to the program's target, the gaps are read at `pick`, and
+    `rank_gap` is (best score - the score at pick) / (best - worst)."""
     import importlib
 
     import torch
@@ -270,15 +311,23 @@ def reference_check(cell: registry.Cell, seed: int, dev: Device, rows: List[Row]
     cfg, tr = cell.config, cell.traffic
     p = weights.sam_audio_weights(cfg, seed, dev.dev)
     pe = weights.pe_weights(cfg, seed, dev.dev) if cfg.get("vision_tower") else None
+    clap = weights.clap_weights(cfg, seed, dev.dev) if cfg.get("text_ranker") else None
     hop = math.prod(cfg["audio_codec"]["encoder_rates"])
     width = 2 * cfg["audio_codec"]["codebook_dim"]
     gaps = {"target_rel_err": 0.0, "residual_rel_err": 0.0, "wrong_length": 0, "non_finite": 0}
+    if int(tr.get("candidates", 1)) > 1:
+        gaps["rank_gap"] = 0.0
     with torch.inference_mode():
         for row in sorted(rows, key=lambda r: (r.group, r.slot)):
-            noise = dev.replay_noise(row.noise_state,
-                                     (row.rows, row.samples // hop, width))[row.slot]
             req = row.request
             wav = torch.as_tensor(req.wav, device=dev.dev)
+            if row.candidates > 1:
+                tgt, res, got_t, got_r = _ranked_row(ref, cfg, p, pe, clap, row, wav, dev,
+                                                    int(tr["text_pad_to"]), control, gaps)
+                _compare(row, gaps, ((got_t, tgt), (got_r, res)))
+                continue
+            noise = dev.replay_noise(row.noise_state,
+                                     (row.rows, row.samples // hop, width))[row.slot]
 
             def separate():
                 video = None if req.frames is None else ref.video_features(
@@ -295,21 +344,87 @@ def reference_check(cell: registry.Cell, seed: int, dev: Device, rows: List[Row]
                     got_t, got_r = (x.cpu().numpy() for x in separate())
                 finally:
                     ref.set_precision("fp32")
-            for key, got, want in (("target_rel_err", got_t, tgt),
-                                   ("residual_rel_err", got_r, res)):
-                want = want.cpu().numpy().astype(np.float64)
-                got = np.asarray(got, np.float64)
-                if got.shape != want.shape:
-                    gaps["wrong_length"] += 1
-                    continue
-                if not np.all(np.isfinite(got)):
-                    gaps["non_finite"] += 1
-                    continue
-                err = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
-                gaps[key] = max(gaps[key], err)
-                log(f"row {row.request.index} (group {row.group}, slot {row.slot}) {key} "
-                    f"{err:.6g}, rms {np.sqrt(np.mean(want ** 2)):.4g}")
+            _compare(row, gaps, ((got_t, tgt), (got_r, res)))
     return gaps
+
+
+def rel_l2(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def _compare(row: Row, gaps: Dict[str, float], pairs):
+    """(got, want) of the target and of the residual into `gaps`."""
+    for key, (got, want) in zip(("target_rel_err", "residual_rel_err"), pairs):
+        want = want.cpu().numpy().astype(np.float64)
+        got = np.asarray(got, np.float64)
+        if got.shape != want.shape:
+            gaps["wrong_length"] += 1
+            continue
+        if not np.all(np.isfinite(got)):
+            gaps["non_finite"] += 1
+            continue
+        err = rel_l2(got, want)
+        gaps[key] = max(gaps[key], err)
+        log(f"row {row.request.index} (group {row.group}, slot {row.slot}) {key} "
+            f"{err:.6g}, rms {np.sqrt(np.mean(want ** 2)):.4g}")
+
+
+def _ranked_row(ref, cfg, p, pe, clap, row: Row, wav, dev: Device, text_pad_to: int,
+                control: Optional[str], gaps: Dict[str, float]):
+    """One sampled item of k candidates: the reference's k solutions and
+    scores, its candidate nearest to the program's target (`pick`), and
+    `rank_gap` into `gaps`. Returns (reference target and residual at pick,
+    the program's target and residual)."""
+    import torch
+
+    k, req = row.candidates, row.request
+    hop = math.prod(cfg["audio_codec"]["encoder_rates"])
+    width = 2 * cfg["audio_codec"]["codebook_dim"]
+    noise = dev.replay_noise(row.noise_state, (row.rows * k, row.samples // hop, width))
+    noise = noise[row.slot * k:(row.slot + 1) * k]
+    video = None if req.frames is None else ref.video_features(
+        pe, cfg["vision_encoder"], req.frames, traffic.box_mask(req.frames.shape, req.box),
+        -(-wav.shape[0] // hop))
+
+    def candidates(choose=None):
+        return ref.separate_candidates(p, cfg, clap, wav, req.description, noise, row.samples,
+                                       text_pad_to, video, choose)
+
+    got_t, got_r = row.target, row.residual
+    if control == "fp8":
+        ref.set_precision("fp8")
+        try:
+            targets, _, i, res = candidates()
+            got_t, got_r = targets[i].cpu().numpy(), res.cpu().numpy()
+        finally:
+            ref.set_precision("fp32")
+    got = np.asarray(got_t, np.float64)
+    errs: List[float] = []
+
+    def nearest(targets, scores):
+        errs.extend(rel_l2(got, t) if t.shape == got.shape else math.inf
+                    for t in targets.cpu().numpy().astype(np.float64))
+        return int(np.argmin(errs)) if np.isfinite(min(errs)) else int(torch.argmax(scores))
+
+    targets, scores, pick, res = candidates(nearest)
+    s = scores.double().cpu().numpy()
+    top = np.sort(s)[::-1]
+    spread = top[0] - top[-1]
+    gap = float((top[0] - s[pick]) / spread) if spread > 0 else 0.0
+    gaps["rank_gap"] = max(gaps["rank_gap"], gap)
+    # the score the program's own answer gets: how far its error moves a score
+    scored = float("nan")
+    if got.shape == targets[pick].shape:
+        c = cfg["clap"]
+        scored = float(ref.audio_embedding(clap, c, torch.as_tensor(got, dtype=torch.float32,
+                                                                     device=wav.device))
+                       @ ref.text_embedding(clap, c, req.description))
+    log(f"rank row {req.index} (group {row.group}, slot {row.slot}): pick {pick}, reference "
+        f"best {int(np.argmax(s))}, rank_gap {gap:.6g}, top-1 - top-2 {top[0] - top[1]:.6g}, "
+        f"best - worst {spread:.6g}, the program's answer scored {scored:.6g} (its pick "
+        f"{s[pick]:.6g}); scores {' '.join(f'{x:.6g}' for x in s)}; program's target to "
+        f"each candidate {' '.join(f'{e:.4g}' for e in errs)}")
+    return targets[pick], res, got_t, got_r
 
 
 def run_cell(cell: registry.Cell, seed: int, seconds: float, trace_on: bool,

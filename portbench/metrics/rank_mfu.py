@@ -1,0 +1,14 @@
+"""The ranker's share of the chip's bf16 peak: the CLAP towers' operations
+on the traced groups (every candidate's HTSAT embedding and each item's
+RoBERTa prompt, portbench/harness/flops.py `rank_flops`) over the summed
+device intervals of the program's `sam_audio.rank` spans
+(portbench/harness/spans.py) times 989 TFLOP/s. None where no ranker
+scored a group."""
+
+from portbench.harness import spans
+
+
+def read(ctx):
+    f = ctx["flops"]
+    work = sum(f.rank_flops(ctx["cfg"], g) for g in ctx["run"].groups)
+    return spans.stage_mfu(ctx, "rank", work)

@@ -8,7 +8,7 @@ cache, no batching beyond one row, float32 throughout, TF32 off. It reads
 the weight tree the benchmark drew and the inputs the benchmark made, and
 imports nothing of the program under test.
 
-Path of one row (`separate_row`):
+Path of one row (`separate_row`: `conditioned`, `solve`, `decode`):
   mixture (1, T) -> reflect pad to a hop multiple -> DAC-VAE encoder ->
   in_proj, mean half -> latents (T', 128)
   prompt -> byte tokens (+ eos), padded to a multiple of 64 -> T5 encoder
@@ -396,20 +396,19 @@ def video_features(p, ve, frames, masks, n_frames, chunk=50):
 
 # -- one row of separate ---------------------------------------------------------
 
-def separate_row(p, cfg, wav, description, noise, pad_to, text_pad_to=64, video=None):
-    """wav (T,) float32 at the codec's rate, zero-padded to `pad_to` samples
-    (the length bucket it was served in); noise (pad_to / hop, 2 *
-    codebook_dim); video (frames, vision dim) features of the clip's frames,
-    or None. Padded frames are masked as keys of self-attention and read the
-    <pad> anchor slot. Returns (target, residual), each trimmed to frames *
-    hop samples."""
+def conditioned(p, cfg, wav, description, pad_to, text_pad_to=64, video=None):
+    """The velocity field of one item and its true latent frames. wav (T,)
+    float32 at the codec's rate, zero-padded to `pad_to` samples (the length
+    bucket it was served in); video (frames, vision dim) features of the
+    clip's frames, or None. Padded frames are masked as keys of
+    self-attention and read the <pad> anchor slot."""
     c, tf = cfg["audio_codec"], cfg["transformer"]
-    dev = noise.device
+    dev = wav.device
     hop = math.prod(c["encoder_rates"])
     frames = -(-wav.shape[0] // hop)
     lat = codec_encode(p["audio_codec"], F.pad(wav, (0, pad_to - wav.shape[0])), c)
     t_lat = lat.shape[0]
-    assert t_lat == -(-pad_to // hop) == noise.shape[0], (t_lat, pad_to, noise.shape)
+    assert t_lat == -(-pad_to // hop), (t_lat, pad_to)
     feats = torch.cat([lat, lat], -1)
     ids, mask = padded_text(description, text_pad_to, cfg["text_encoder"]["vocab_size"])
     ids, mask = ids.to(dev), mask.to(dev)
@@ -434,14 +433,35 @@ def separate_row(p, cfg, wav, description, noise, pad_to, text_pad_to=64, video=
         memory = memory_base + sinusoid(t[None], tf["dim"])
         return dit(p["transformer"], tf, x, t, memory, mask, pad_mask)
 
+    return velocity, frames
+
+
+def solve(velocity, noise):
+    """16 midpoint steps of 2/32 from noise (T', 2 * codebook_dim)."""
+    dev = noise.device
     y = noise.float()
     step = torch.tensor(2.0 / 32, dtype=torch.float32, device=dev)
     for i in range(16):
         t = torch.tensor(float(i), dtype=torch.float32, device=dev) * step
         k1 = velocity(t, y)
         y = y + step * velocity(t + step / 2, y + step / 2 * k1)
+    return y
+
+
+def decode(p, cfg, y, frames, channel):
+    """One channel (0 target, 1 residual) of the solved latents, trimmed to
+    frames * hop samples."""
+    c = cfg["audio_codec"]
     cd = c["codebook_dim"]
-    n = frames * hop
-    target = codec_decode(p["audio_codec"], y[:, :cd], c)[:n]
-    residual = codec_decode(p["audio_codec"], y[:, cd:], c)[:n]
-    return target, residual
+    n = frames * math.prod(c["encoder_rates"])
+    return codec_decode(p["audio_codec"], y[:, channel * cd: (channel + 1) * cd], c)[:n]
+
+
+def separate_row(p, cfg, wav, description, noise, pad_to, text_pad_to=64, video=None):
+    """One row of `conditioned`'s item from noise (pad_to / hop, 2 *
+    codebook_dim). Returns (target, residual), each trimmed to frames * hop
+    samples."""
+    velocity, frames = conditioned(p, cfg, wav, description, pad_to, text_pad_to, video)
+    assert noise.shape[0] == -(-pad_to // math.prod(cfg["audio_codec"]["encoder_rates"]))
+    y = solve(velocity, noise)
+    return decode(p, cfg, y, frames, 0), decode(p, cfg, y, frames, 1)

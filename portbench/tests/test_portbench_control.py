@@ -1,7 +1,8 @@
 """On the card: each cell's check passes the program as configured and
 fails its control, the plain reference computed with fp8 operands in the
 program's place, at a size a test run holds (one call of at most two rows;
-the long cell keeps clips over 40 s so that kernel 2 still runs). The
+the long cell keeps clips over 40 s so that kernel 2 still runs; the rerank
+cell one item of its 8 candidates). The
 limits are the cell's own. And each fault on the video branch alone fails
 the video cell's check.
 
@@ -16,7 +17,9 @@ from test_portbench_reference import VIDEO_FAULTS
 CELLS = [w["name"] for w in registry.manifest()["workloads"]]
 SMALL = {"offline-b16-10s": dict(requests_per_call=2, max_batch=2, clip_seconds=4.0, pool=2),
          "video-b2-10s": dict(requests_per_call=1, max_batch=1, clip_seconds=4.0, pool=1),
-         "long-b4-45s": dict(requests_per_call=1, max_batch=1, clip_seconds=41.0, pool=1)}
+         "long-b4-45s": dict(requests_per_call=1, max_batch=1, clip_seconds=41.0, pool=1),
+         # 5 s clips: twice into the ranker's 10 s window, by its repeat-pad
+         "rerank-k8-10s": dict(requests_per_call=1, max_batch=1, clip_seconds=5.0, pool=1)}
 
 
 def small(name):

@@ -101,3 +101,78 @@ def test_kernel_bounds_follow_chip_smoke():
     enc, dec = flops.residual_units(cfg, 480000, 250)
     assert len(enc) + 2 * len(dec) == 36
     assert dec[0] == (768, 3000) and enc[-1] == (512, 3000)
+
+
+# -- the k-candidate path and the CLAP ranker -----------------------------------------
+
+CLAP = json.loads((DATA / "tiny_clap.json").read_text())["clap"]
+
+
+@pytest.fixture(scope="module")
+def clap():
+    from portbench.harness.bench import clap_config
+
+    cfg = {"clap": CLAP}
+    return clap_config(cfg), weights.clap_weights(cfg, 3, torch.device("cpu"))
+
+
+def test_clap_audio_against_flop_counter(clap):
+    from sam_audio_tpu_torch.models.clap import clap_audio_embed
+
+    c, p = clap
+    wav = torch.randn(3, c.n_samples)
+    assert counted(lambda: clap_audio_embed(p, c, wav)) == 3 * flops.clap_audio_flops(CLAP)
+
+
+def test_clap_text_against_flop_counter(clap):
+    from sam_audio_tpu_torch.models.clap import clap_text_embed
+
+    c, p = clap
+    ids = torch.randint(3, 200, (2, 12))
+    mask = torch.ones(2, 12, dtype=torch.bool)
+    assert counted(lambda: clap_text_embed(p, c, ids, mask)) == 2 * flops.clap_text_flops(CLAP, 12)
+
+
+def test_candidates_scale_the_ode_and_the_target_decodes_by_hand():
+    cfg = dict(CFG, clap=CLAP)
+    one = flops.GroupShape(rows=2, samples=480, frames=60, text=64)
+    ranked = flops.GroupShape(rows=2, samples=480, frames=60, text=64, candidates=8, rank_text=12)
+    enc, t5 = flops.codec_encode_flops(cfg, 480), flops.t5_flops(cfg, 64)
+    dit, dec = 32 * flops.dit_eval_flops(cfg, 60, 64), flops.codec_decode_flops(cfg, 60)
+    assert flops.group_flops(cfg, one) == 2 * (enc + t5 + dit + 2 * dec)
+    # encode and T5 once an item; 8 solutions and 8 target decodes an item;
+    # the kept candidate's residual; 8 audio embeddings and one prompt an item
+    assert flops.group_flops(cfg, ranked) == 2 * (enc + t5 + 8 * dit + 9 * dec) + 2 * (
+        8 * flops.clap_audio_flops(CLAP) + flops.clap_text_flops(CLAP, 12))
+    ops1, bytes1 = flops.self_attention_work(cfg, one)
+    ops8, bytes8 = flops.self_attention_work(cfg, ranked)
+    assert ops8 == 8 * ops1 and bytes8 > 7 * bytes1
+    # 16 targets in one launch of 16 rows, the 2 residuals in one of 2
+    assert flops.decode_launches(ranked) == {16: 1, 2: 1}
+    assert flops.decode_launches(one) == {2: 2}
+    big = flops.GroupShape(rows=4, samples=480, frames=60, text=64, candidates=8, rank_text=12)
+    assert flops.decode_launches(big) == {16: 2, 4: 1}
+    # k candidates with no ranker: candidate 0 is decoded, nothing is scored
+    unranked = flops.GroupShape(rows=2, samples=480, frames=60, text=64, candidates=8)
+    assert flops.group_flops(cfg, unranked) == 2 * (enc + t5 + 8 * dit + 2 * dec)
+    assert flops.rank_flops(cfg, unranked) == 0
+
+
+def _config(name):
+    return json.loads((DATA.parent.parent / "configs" / f"{name}.json").read_text())
+
+
+@pytest.mark.parametrize("config, shape, counts", [
+    ("sam-audio-1b", dict(rows=16, samples=480000, frames=250, text=64),
+     (307238516293632, (4194304000000, 33622540288), 0.03718118024246412)),
+    ("sam-audio-1b-visual", dict(rows=2, samples=480000, frames=250, text=64, video_frames=250),
+     (230578306760704, (524288000000, 4260620288), 0.004647699685531896)),
+    ("sam-audio-1b", dict(rows=4, samples=2208000, frames=1150, text=64),
+     (361750536388608, (22187868160000, 38891941888), 0.042758348337938214)),
+], ids=["offline-b16-10s", "video-b2-10s", "long-b4-45s"])
+def test_k1_cells_count_as_before(config, shape, counts):
+    """The three k = 1 cells' group shapes give exactly the numbers the
+    counters gave before they learned of candidates."""
+    cfg, g = _config(config), flops.GroupShape(**shape)
+    assert (flops.group_flops(cfg, g), flops.self_attention_work(cfg, g),
+            flops.residual_unit_bound_s(cfg, g)) == counts

@@ -38,6 +38,16 @@ def test_config_file_is_the_programs_schema(entry):
     assert parsed.transformer.dim == 2048 and parsed.transformer.n_layers == 16
     assert parsed.compute_dtype == "bfloat16"
     assert entry["reduced"] == []
+    if cfg.get("text_ranker"):
+        from sam_audio_tpu_torch.config import ClapRankerConfig
+        from sam_audio_tpu_torch.models.clap import ClapConfig
+
+        from portbench.harness.bench import clap_config
+
+        # the ranker's kind parses, and the `clap` block is ClapConfig's own
+        # fields at laion_clap 630k-best's widths (its defaults)
+        assert isinstance(parsed.text_ranker, ClapRankerConfig)
+        assert clap_config(cfg) == ClapConfig()
 
 
 def test_manifest_contract_shape():
