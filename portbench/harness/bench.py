@@ -2,8 +2,9 @@
 of what the window produced against the plain reference, the result line.
 
 Set-up: the program built from the configuration file (weights drawn on
-the device from the seed, the vision tower where the file has one, the CLAP
-text ranker where it names one, then the file's `build` steps, each a
+the device from the seed, the vision tower where the file has one, the text
+ranker where it names one, built by its kind's module in
+portbench/harness/rankers/, then the file's `build` steps, each a
 method of the model and its arguments, such as ["quantize", 4]); the pool
 of requests made from the seed (WAV files in a temporary directory under
 TMPDIR); and the traffic's `loop`, found by name in
@@ -35,7 +36,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from portbench.harness import flops, registry, trace, traffic, weights
+from portbench.harness import flops, rankers, registry, trace, traffic, weights
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "sam_audio_tpu")
 
@@ -121,16 +122,18 @@ class Device:
 
 def build_model(cfg: dict, seed: int, dev: Device):
     """SAMAudio with the configuration's weights drawn from the seed, its
-    PE-Core tower where the file has `vision_tower`, the CLAP ranker (its
-    weights from the seed, the `clap` block's widths, the byte tokenizer)
-    where `text_ranker` names one, then the file's `build` steps in order:
-    ["quantize", 4] calls model.quantize(4)."""
+    PE-Core tower where the file has `vision_tower`, the text ranker that
+    its kind's module builds where `text_ranker` names one, then the file's
+    `build` steps in order: ["quantize", 4] calls model.quantize(4). The
+    program's configuration is parsed without `text_ranker`, which the
+    model does not read: the ranker is the module's to build, and a kind
+    the program's parser does not know still joins."""
     import torch
 
     from sam_audio_tpu_torch import SAMAudio, SAMAudioConfig
     from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
 
-    pcfg = SAMAudioConfig.from_dict(cfg)
+    pcfg = SAMAudioConfig.from_dict({**cfg, "text_ranker": None})
     model = SAMAudio(pcfg, weights.sam_audio_weights(cfg, seed, dev.dev), device=dev.dev,
                      tokenizer=ByteFallbackTokenizer(pcfg.text_encoder.vocab_size))
     if cfg.get("vision_tower"):
@@ -139,33 +142,12 @@ def build_model(cfg: dict, seed: int, dev: Device):
         model.vision_encoder = PerceptionEncoder(
             pcfg.vision_encoder, weights.pe_weights(cfg, seed, dev.dev), device=dev.dev,
             compute_dtype=getattr(torch, cfg["compute_dtype"]))
-    if cfg.get("text_ranker"):
-        model.text_ranker = clap_ranker(cfg, seed, dev)
+    ranker = rankers.for_config(cfg)
+    if ranker is not None:
+        model.text_ranker = ranker.build(cfg, seed, dev.dev)
     for name, *args in cfg.get("build", []):
         getattr(model, name)(*args)
     return model
-
-
-def clap_config(cfg: dict):
-    """The program's ClapConfig of the configuration's `clap` block."""
-    from sam_audio_tpu_torch.models.clap import ClapConfig
-
-    return ClapConfig(**{k: tuple(v) if isinstance(v, list) else v
-                         for k, v in cfg["clap"].items()})
-
-
-def clap_ranker(cfg: dict, seed: int, dev: Device):
-    from sam_audio_tpu_torch.config import parse_ranker_config
-    from sam_audio_tpu_torch.models.clap import ClapModel
-    from sam_audio_tpu_torch.ranking.clap import ClapRanker
-    from sam_audio_tpu_torch.text_tokenizer import ByteFallbackTokenizer
-
-    if cfg["text_ranker"]["kind"] != "clap":
-        raise ValueError(f"no ranker of kind {cfg['text_ranker']['kind']!r} in the benchmark")
-    c = clap_config(cfg)
-    model = ClapModel(c, weights.clap_weights(cfg, seed, dev.dev),
-                      tokenizer=ByteFallbackTokenizer(c.text_vocab), allow_fallback_tokenizer=True)
-    return ClapRanker(parse_ranker_config(cfg["text_ranker"]), model=model)
 
 
 def program_requests(pool: List[traffic.Request], sample_rate: int):
@@ -186,11 +168,12 @@ def program_requests(pool: List[traffic.Request], sample_rate: int):
     return out
 
 
-def text_width(descriptions, pad_to: int, max_length: int = 512) -> int:
-    """The padded prompt width of a group (the byte tokenizer's lengths)."""
+def text_width(descriptions, pad_to: int) -> int:
+    """The padded prompt width of a group (the byte tokenizer's lengths, at
+    most T5's 512)."""
     from portbench.reference.sam_audio import byte_tokens
 
-    longest = max(len(byte_tokens(d, max_length)) for d in descriptions)
+    longest = max(len(byte_tokens(d)) for d in descriptions)
     return -(-longest // pad_to) * pad_to
 
 
@@ -208,6 +191,7 @@ class Run:
         self.marks = [("imports", time.perf_counter())]
         self.model = self.pool = self.requests = self.prof = None
         self.reservoir = Reservoir(int(self.traffic["check_rows"]), seed)
+        self.ranker = rankers.for_config(cell.config)
         self.groups: List[flops.GroupShape] = []
         self.durations: List[float] = []
         self.attempted = self.failed = 0
@@ -270,14 +254,14 @@ class Run:
         rows, samples = sizes.pop()
         g = len(self.groups)
         k = int(self.traffic.get("candidates", 1))
-        clap = self.cell.config.get("clap") if self.cell.config.get("text_ranker") else None
         descriptions = [r.description for r in reqs]
         self.groups.append(flops.GroupShape(
             rows=rows, samples=samples, frames=samples // self.hop,
             text=text_width(descriptions, int(self.traffic["text_pad_to"])),
             video_frames=samples // self.hop if self.traffic.get("video") else 0,
             candidates=k,
-            rank_text=text_width(descriptions, 1, clap["max_text_len"]) if clap and k > 1 else 0))
+            rank_text=self.ranker.prompt_tokens(self.cell.config, descriptions)
+            if self.ranker and k > 1 else 0))
         self.durations.append(seconds)
         self.attempted += len(reqs)
         for slot, (req, r) in enumerate(zip(reqs, results)):
@@ -298,9 +282,10 @@ def reference_check(cell: registry.Cell, seed: int, dev: Device, rows: List[Row]
 
     A row of k > 1 candidates: the reference module's `separate_candidates`
     solves, decodes and scores the item's k noises (`[slot * k:(slot + 1) *
-    k]` of the group's item-major draw); `pick` is its candidate nearest
-    (relative L2) to the program's target, the gaps are read at `pick`, and
-    `rank_gap` is (best score - the score at pick) / (best - worst)."""
+    k]` of the group's item-major draw) with the ranker's weights (its
+    kind's `weights`); `pick` is its candidate nearest (relative L2) to the
+    program's target, the gaps are read at `pick`, and `rank_gap` is (best
+    score - the score at pick) / (best - worst)."""
     import importlib
 
     import torch
@@ -311,7 +296,8 @@ def reference_check(cell: registry.Cell, seed: int, dev: Device, rows: List[Row]
     cfg, tr = cell.config, cell.traffic
     p = weights.sam_audio_weights(cfg, seed, dev.dev)
     pe = weights.pe_weights(cfg, seed, dev.dev) if cfg.get("vision_tower") else None
-    clap = weights.clap_weights(cfg, seed, dev.dev) if cfg.get("text_ranker") else None
+    ranker = rankers.for_config(cfg)
+    rw = ranker.weights(cfg, seed, dev.dev) if ranker is not None else None
     hop = math.prod(cfg["audio_codec"]["encoder_rates"])
     width = 2 * cfg["audio_codec"]["codebook_dim"]
     gaps = {"target_rel_err": 0.0, "residual_rel_err": 0.0, "wrong_length": 0, "non_finite": 0}
@@ -322,7 +308,7 @@ def reference_check(cell: registry.Cell, seed: int, dev: Device, rows: List[Row]
             req = row.request
             wav = torch.as_tensor(req.wav, device=dev.dev)
             if row.candidates > 1:
-                tgt, res, got_t, got_r = _ranked_row(ref, cfg, p, pe, clap, row, wav, dev,
+                tgt, res, got_t, got_r = _ranked_row(ref, cfg, p, pe, rw, row, wav, dev,
                                                     int(tr["text_pad_to"]), control, gaps)
                 _compare(row, gaps, ((got_t, tgt), (got_r, res)))
                 continue
@@ -369,12 +355,13 @@ def _compare(row: Row, gaps: Dict[str, float], pairs):
             f"{err:.6g}, rms {np.sqrt(np.mean(want ** 2)):.4g}")
 
 
-def _ranked_row(ref, cfg, p, pe, clap, row: Row, wav, dev: Device, text_pad_to: int,
+def _ranked_row(ref, cfg, p, pe, rw, row: Row, wav, dev: Device, text_pad_to: int,
                 control: Optional[str], gaps: Dict[str, float]):
-    """One sampled item of k candidates: the reference's k solutions and
-    scores, its candidate nearest to the program's target (`pick`), and
-    `rank_gap` into `gaps`. Returns (reference target and residual at pick,
-    the program's target and residual)."""
+    """One sampled item of k candidates scored with the ranker's weights
+    `rw`: the reference's k solutions and scores, its candidate nearest to
+    the program's target (`pick`), and `rank_gap` into `gaps`. Returns
+    (reference target and residual at pick, the program's target and
+    residual)."""
     import torch
 
     k, req = row.candidates, row.request
@@ -387,7 +374,7 @@ def _ranked_row(ref, cfg, p, pe, clap, row: Row, wav, dev: Device, text_pad_to: 
         -(-wav.shape[0] // hop))
 
     def candidates(choose=None):
-        return ref.separate_candidates(p, cfg, clap, wav, req.description, noise, row.samples,
+        return ref.separate_candidates(p, cfg, rw, wav, req.description, noise, row.samples,
                                        text_pad_to, video, choose)
 
     got_t, got_r = row.target, row.residual
@@ -415,10 +402,9 @@ def _ranked_row(ref, cfg, p, pe, clap, row: Row, wav, dev: Device, text_pad_to: 
     # the score the program's own answer gets: how far its error moves a score
     scored = float("nan")
     if got.shape == targets[pick].shape:
-        c = cfg["clap"]
-        scored = float(ref.audio_embedding(clap, c, torch.as_tensor(got, dtype=torch.float32,
-                                                                     device=wav.device))
-                       @ ref.text_embedding(clap, c, req.description))
+        scored = float(ref.score(rw, cfg, torch.as_tensor(got, dtype=torch.float32,
+                                                          device=wav.device),
+                                 req.description, wav))
     log(f"rank row {req.index} (group {row.group}, slot {row.slot}): pick {pick}, reference "
         f"best {int(np.argmax(s))}, rank_gap {gap:.6g}, top-1 - top-2 {top[0] - top[1]:.6g}, "
         f"best - worst {spread:.6g}, the program's answer scored {scored:.6g} (its pick "

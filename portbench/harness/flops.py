@@ -16,6 +16,8 @@ from collections import Counter
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
+from portbench.harness import rankers
+
 # NVIDIA H100 SXM, dense, at the full 700 W power limit (NVIDIA's data sheet)
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
@@ -39,8 +41,8 @@ class GroupShape:
     samples (`frames` latent frames), `text` padded prompt tokens,
     `video_frames` frames a row through the vision tower (0 without video),
     `evals` DiT evaluations, `candidates` ODE solutions an item (k), and
-    `rank_text` the ranker's RoBERTa tokens a prompt (0 where no ranker
-    scores the candidates)."""
+    `rank_text` the ranker's text tokens a prompt (0 where it reads none, or
+    where no ranker scores the candidates: `ranker`)."""
     rows: int
     samples: int
     frames: int
@@ -49,12 +51,6 @@ class GroupShape:
     evals: int = 32
     candidates: int = 1
     rank_text: int = 0
-
-    @property
-    def target_rows(self) -> int:
-        """Target decodes: every candidate where a ranker scores them, else
-        the one kept (candidate 0 of each item)."""
-        return self.rows * (self.candidates if self.rank_text else 1)
 
 
 def ffn_hidden(tf: dict) -> int:
@@ -164,46 +160,24 @@ def pe_frame_flops(cfg: dict) -> float:
     return 2 * 3 * p * p * w * grid * grid + ve["vit_layers"] * layer + pool
 
 
-def clap_audio_flops(clap: dict) -> float:
-    """HTSAT-tiny and the audio projection on one candidate (the `clap`
-    block of a configuration): the log-mel filterbank product, the bicubic
-    time resize to spec_size x freq_ratio frames, the patch embedding, every
-    swin block (qkv, windowed scores and values, projection, MLP of 4x) and
-    patch merge, the 2-layer projection. The FFT is not a product."""
-    frames = int(round(clap["sample_rate"] * clap["duration_s"])) // clap["hop_length"] + 1
-    mels = clap["n_mels"]
-    ratio = clap["spec_size"] // mels
-    total = 2 * frames * (clap["n_fft"] // 2 + 1) * mels
-    if frames != clap["spec_size"] * ratio:
-        total += 2 * 4 * mels * clap["spec_size"] * ratio
-    p, c = clap["patch_size"], clap["audio_embed_dim"]
-    res = clap["spec_size"] // p
-    total += 2 * p * p * c * res * res
-    for i, depth in enumerate(clap["depths"]):
-        n, t = res * res, min(clap["window_size"], res) ** 2
-        total += depth * (n * 2 * 12 * c * c + 4 * n * t * c)
-        if i < len(clap["depths"]) - 1:
-            total += 2 * (n // 4) * 4 * c * 2 * c
-            res, c = res // 2, 2 * c
-    e = clap["embed_dim"]
-    return total + 2 * c * e + 2 * e * e
+def ranker(cfg: dict, g: GroupShape):
+    """The kind (portbench/harness/rankers/<kind>.py) of the ranker that
+    scores the group's candidates; None where the configuration has none or
+    an item has one candidate."""
+    return rankers.for_config(cfg) if g.candidates > 1 else None
 
 
-def clap_text_flops(clap: dict, tokens: int) -> float:
-    """RoBERTa (every layer's products and attention), its pooler and the
-    2-layer projection on one prompt of `tokens` tokens."""
-    h, m, e = clap["text_hidden"], clap["text_intermediate"], clap["embed_dim"]
-    layer = tokens * 2 * (4 * h * h + 2 * h * m) + 4 * tokens * tokens * h
-    return clap["text_layers"] * layer + 2 * h * h + 2 * h * e + 2 * e * e
+def target_rows(cfg: dict, g: GroupShape) -> int:
+    """Target decodes: every candidate where a ranker scores them, else the
+    one kept (candidate 0 of each item)."""
+    return g.rows * (g.candidates if ranker(cfg, g) else 1)
 
 
 def rank_flops(cfg: dict, g: GroupShape) -> float:
-    """The ranker's operations on one group: every candidate's audio
-    embedding and each item's prompt; 0 where no ranker scores it."""
-    if not g.rank_text:
-        return 0
-    clap = cfg["clap"]
-    return g.rows * (g.candidates * clap_audio_flops(clap) + clap_text_flops(clap, g.rank_text))
+    """The ranker's operations on one group, as its kind counts them (its
+    `flops`); 0 where no ranker scores it."""
+    kind = ranker(cfg, g)
+    return 0 if kind is None else kind.flops(cfg, g)
 
 
 def group_flops(cfg: dict, g: GroupShape) -> float:
@@ -213,7 +187,7 @@ def group_flops(cfg: dict, g: GroupShape) -> float:
     ranker]."""
     per_row = (codec_encode_flops(cfg, g.samples) + t5_flops(cfg, g.text)
                + g.candidates * g.evals * dit_eval_flops(cfg, g.frames, g.text)
-               + (g.target_rows // g.rows + 1) * codec_decode_flops(cfg, g.frames)
+               + (target_rows(cfg, g) // g.rows + 1) * codec_decode_flops(cfg, g.frames)
                + g.video_frames * pe_frame_flops(cfg))
     return g.rows * per_row + rank_flops(cfg, g)
 
@@ -230,26 +204,39 @@ def self_attention_work(cfg: dict, g: GroupShape) -> Tuple[float, float]:
     return launches * flops, launches * nbytes
 
 
-def decode_launches(g: GroupShape) -> Dict[int, int]:
+def decode_launches(cfg: dict, g: GroupShape) -> Dict[int, int]:
     """Rows a launch -> launches of each decoder unit: the target decode
     (every candidate in chunks of DECODE_STREAMS rows where a ranker scores
     them, else one launch over the items) and the residual decode of the
     kept candidates."""
     counts: Dict[int, int] = Counter()
-    if g.rank_text and g.target_rows > DECODE_STREAMS:
-        for i in range(0, g.target_rows, DECODE_STREAMS):
-            counts[min(DECODE_STREAMS, g.target_rows - i)] += 1
+    targets = target_rows(cfg, g)
+    if ranker(cfg, g) and targets > DECODE_STREAMS:
+        for i in range(0, targets, DECODE_STREAMS):
+            counts[min(DECODE_STREAMS, targets - i)] += 1
     else:
-        counts[g.target_rows] += 1
+        counts[targets] += 1
     counts[g.rows] += 1
+    return dict(counts)
+
+
+def encode_launches(cfg: dict, g: GroupShape) -> Dict[int, int]:
+    """Rows a launch -> launches of each encoder unit: the separation's
+    encode over the group's rows, and the encodes its ranker runs over the
+    group's samples (`encoder_launches` of its kind)."""
+    counts: Dict[int, int] = Counter({g.rows: 1})
+    kind = ranker(cfg, g)
+    if kind is not None:
+        counts.update(kind.encoder_launches(cfg, g))
     return dict(counts)
 
 
 def residual_unit_bound_s(cfg: dict, g: GroupShape) -> float:
     """The least time of every codec residual unit of one group, launch by
-    launch: the encode over the group's rows, the decodes as
+    launch: the encodes as `encode_launches` has them, the decodes as
     `decode_launches` has them."""
     enc, dec = residual_units(cfg, g.samples, g.frames)
     return sum(times * bound_s(rows * unit_flops(ch, n), unit_bytes(ch, n, rows))
-               for units, launches in ((enc, {g.rows: 1}), (dec, decode_launches(g)))
+               for units, launches in ((enc, encode_launches(cfg, g)),
+                                       (dec, decode_launches(cfg, g)))
                for rows, times in launches.items() for ch, n in units)

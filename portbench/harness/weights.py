@@ -15,11 +15,9 @@ the convs outside the residual units (all but the decoder's last) times
 and biases 0, Snake alphas 1, the DiT's adaLN tables normal with the
 configuration's `init.adaln_table_std`, embeddings and T5's relative bias
 normal(0, 1), the vision tower's patch, class, position and probe tensors
-normal(0, 0.02), the gates as the configuration states. The CLAP ranker's
-tree (the `clap` block) follows the same rules, with the swin blocks'
-relative position tables normal(0, 0.02); its buffers are computed, not
-drawn: the mel filterbank (librosa's Slaney filters, from the reference),
-bn0's running mean 0 and variance 1, the logit scales log(1 / 0.07).
+normal(0, 0.02), the gates as the configuration states. A text ranker's
+tree follows the same rules, drawn from seed + 2 by its kind's module
+(portbench/harness/rankers/).
 """
 
 from __future__ import annotations
@@ -264,62 +262,3 @@ def sam_audio_weights(cfg: dict, seed: int, device) -> dict:
 def pe_weights(cfg: dict, seed: int, device) -> dict:
     return materialize(pe_spec(cfg["vision_encoder"]), seed + 1, device)
 
-
-# roberta-base's position table (512 tokens past the padding id 1) and its
-# one token type
-ROBERTA_POSITIONS = 514
-ROBERTA_TYPES = 1
-
-
-def clap_spec(c: dict):
-    """The program's CLAP tree (models/clap.py, models/htsat.py,
-    models/roberta.py) for the configuration's `clap` block; `melW` is
-    filled in by clap_weights."""
-    ws = c["window_size"]
-
-    def block(ch, heads):
-        return {"norm1": _affine(ch), "qkv": _linear(ch, 3 * ch), "proj": _linear(ch, ch),
-                "relative_position_bias_table": ("n", ((2 * ws - 1) ** 2, heads), 0.02),
-                "norm2": _affine(ch), "fc1": _linear(ch, 4 * ch), "fc2": _linear(4 * ch, ch)}
-
-    e, p, mels = c["audio_embed_dim"], c["patch_size"], c["n_mels"]
-    stages = []
-    for i, depth in enumerate(c["depths"]):
-        ch = e * 2 ** i
-        stage = {"blocks": [block(ch, c["audio_heads"][i]) for _ in range(depth)]}
-        if i < len(c["depths"]) - 1:
-            stage["downsample"] = {"norm": _affine(4 * ch),
-                                   "reduction": _linear(4 * ch, 2 * ch, False)}
-        stages.append(stage)
-    out = e * 2 ** (len(c["depths"]) - 1)
-    audio = {"bn0": {**_affine(mels), "mean": ("c", (mels,), 0.0), "var": ("c", (mels,), 1.0)},
-             "patch_embed": {"proj": {"weight": ("u", (e, 1, p, p), 1.0 / p),
-                                      "bias": ("u", (e,), 1.0 / p)},
-                             "norm": _affine(e)},
-             "stages": stages, "norm": _affine(out)}
-    h, m, L = c["text_hidden"], c["text_intermediate"], (c["text_layers"],)
-    text = {"word_embeddings": {"weight": ("n", (c["text_vocab"], h), 1.0)},
-            "position_embeddings": {"weight": ("n", (ROBERTA_POSITIONS, h), 1.0)},
-            "token_type_embeddings": {"weight": ("n", (ROBERTA_TYPES, h), 1.0)},
-            "emb_ln": _affine(h),
-            "layers": {"attn": {k: _linear(h, h, True, L) for k in ("wq", "wk", "wv", "wo")},
-                       "attn_ln": _affine(h, L), "fc1": _linear(h, m, True, L),
-                       "fc2": _linear(m, h, True, L), "ffn_ln": _affine(h, L)},
-            "pooler": _linear(h, h)}
-    j = c["embed_dim"]
-    return {"audio_branch": audio, "text_branch": text,
-            "audio_projection": {"fc1": _linear(out, j), "fc2": _linear(j, j)},
-            "text_projection": {"fc1": _linear(h, j), "fc2": _linear(j, j)},
-            "logit_scale_a": ("c", (), math.log(1 / 0.07)),
-            "logit_scale_t": ("c", (), math.log(1 / 0.07))}
-
-
-def clap_weights(cfg: dict, seed: int, device) -> dict:
-    from portbench.reference.sam_audio_clap import mel_filterbank
-
-    c = cfg["clap"]
-    tree = materialize(clap_spec(c), seed + 2, device)
-    tree["audio_branch"]["melW"] = torch.tensor(
-        mel_filterbank(c["sample_rate"], c["n_fft"], c["n_mels"], c["fmin"], c["fmax"]),
-        dtype=torch.float32, device=device)
-    return tree

@@ -238,6 +238,13 @@ def text_embedding(clap, c, description):
     return unit(projection(clap["text_projection"], roberta_pooled(clap["text_branch"], c, ids)))
 
 
+def score(clap, cfg, audio, description, mixture):
+    """One waveform's score against its prompt: audio . text. CLAP does
+    not read the mixture."""
+    c = cfg["clap"]
+    return audio_embedding(clap, c, audio) @ text_embedding(clap, c, description)
+
+
 # -- k candidates of one item ------------------------------------------------------
 
 def separate_candidates(p, cfg, clap, wav, description, noise, pad_to, text_pad_to=64,

@@ -8,6 +8,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from portbench.harness import flops, weights
+from portbench.harness.rankers import clap as clap_ranker
 from conftest import DATA
 
 CFG = json.loads((DATA / "tiny.json").read_text())
@@ -110,10 +111,8 @@ CLAP = json.loads((DATA / "tiny_clap.json").read_text())["clap"]
 
 @pytest.fixture(scope="module")
 def clap():
-    from portbench.harness.bench import clap_config
-
     cfg = {"clap": CLAP}
-    return clap_config(cfg), weights.clap_weights(cfg, 3, torch.device("cpu"))
+    return clap_ranker.config(cfg), clap_ranker.weights(cfg, 3, torch.device("cpu"))
 
 
 def test_clap_audio_against_flop_counter(clap):
@@ -121,7 +120,7 @@ def test_clap_audio_against_flop_counter(clap):
 
     c, p = clap
     wav = torch.randn(3, c.n_samples)
-    assert counted(lambda: clap_audio_embed(p, c, wav)) == 3 * flops.clap_audio_flops(CLAP)
+    assert counted(lambda: clap_audio_embed(p, c, wav)) == 3 * clap_ranker.audio_flops(CLAP)
 
 
 def test_clap_text_against_flop_counter(clap):
@@ -130,11 +129,11 @@ def test_clap_text_against_flop_counter(clap):
     c, p = clap
     ids = torch.randint(3, 200, (2, 12))
     mask = torch.ones(2, 12, dtype=torch.bool)
-    assert counted(lambda: clap_text_embed(p, c, ids, mask)) == 2 * flops.clap_text_flops(CLAP, 12)
+    assert counted(lambda: clap_text_embed(p, c, ids, mask)) == 2 * clap_ranker.text_flops(CLAP, 12)
 
 
 def test_candidates_scale_the_ode_and_the_target_decodes_by_hand():
-    cfg = dict(CFG, clap=CLAP)
+    cfg = dict(CFG, text_ranker={"kind": "clap"}, clap=CLAP)
     one = flops.GroupShape(rows=2, samples=480, frames=60, text=64)
     ranked = flops.GroupShape(rows=2, samples=480, frames=60, text=64, candidates=8, rank_text=12)
     enc, t5 = flops.codec_encode_flops(cfg, 480), flops.t5_flops(cfg, 64)
@@ -143,19 +142,19 @@ def test_candidates_scale_the_ode_and_the_target_decodes_by_hand():
     # encode and T5 once an item; 8 solutions and 8 target decodes an item;
     # the kept candidate's residual; 8 audio embeddings and one prompt an item
     assert flops.group_flops(cfg, ranked) == 2 * (enc + t5 + 8 * dit + 9 * dec) + 2 * (
-        8 * flops.clap_audio_flops(CLAP) + flops.clap_text_flops(CLAP, 12))
+        8 * clap_ranker.audio_flops(CLAP) + clap_ranker.text_flops(CLAP, 12))
     ops1, bytes1 = flops.self_attention_work(cfg, one)
     ops8, bytes8 = flops.self_attention_work(cfg, ranked)
     assert ops8 == 8 * ops1 and bytes8 > 7 * bytes1
     # 16 targets in one launch of 16 rows, the 2 residuals in one of 2
-    assert flops.decode_launches(ranked) == {16: 1, 2: 1}
-    assert flops.decode_launches(one) == {2: 2}
+    assert flops.decode_launches(cfg, ranked) == {16: 1, 2: 1}
+    assert flops.decode_launches(cfg, one) == {2: 2}
     big = flops.GroupShape(rows=4, samples=480, frames=60, text=64, candidates=8, rank_text=12)
-    assert flops.decode_launches(big) == {16: 2, 4: 1}
+    assert flops.decode_launches(cfg, big) == {16: 2, 4: 1}
     # k candidates with no ranker: candidate 0 is decoded, nothing is scored
     unranked = flops.GroupShape(rows=2, samples=480, frames=60, text=64, candidates=8)
-    assert flops.group_flops(cfg, unranked) == 2 * (enc + t5 + 8 * dit + 2 * dec)
-    assert flops.rank_flops(cfg, unranked) == 0
+    assert flops.group_flops(CFG, unranked) == 2 * (enc + t5 + 8 * dit + 2 * dec)
+    assert flops.rank_flops(CFG, unranked) == 0
 
 
 def _config(name):

@@ -11,7 +11,8 @@ import pytest
 import torch
 
 from conftest import DATA, tiny_rerank_cell
-from portbench.harness import bench, weights
+from portbench.harness import bench
+from portbench.harness.rankers import clap
 from portbench.reference import sam_audio_clap
 
 SEED = 4_000_000_117
@@ -26,8 +27,8 @@ def test_clap_tree_is_the_programs():
     from sam_audio_tpu_torch.models.init import clap_init
     from sam_audio_tpu_torch.utils import tree_leaves_with_path
 
-    theirs = clap_init(bench.clap_config(CFG), torch.Generator().manual_seed(0), torch.device("cpu"))
-    ours = weights.clap_weights(CFG, 1, torch.device("cpu"))
+    theirs = clap_init(clap.config(CFG), torch.Generator().manual_seed(0), torch.device("cpu"))
+    ours = clap.weights(CFG, 1, torch.device("cpu"))
 
     def shapes(t):
         return {p: tuple(x.shape) for p, x in tree_leaves_with_path(t)}
